@@ -1,0 +1,136 @@
+"""Checkpoint loading and saving for the port's separator.
+
+``load_ss_model`` (the reference's ``utils.load_ss_model``) accepts:
+
+- a reference PyTorch Lightning ``.ckpt`` / ``.pt`` (keys under
+  ``ss_model.``, one FiLM Linear per conditioned path), or a checkpoint the
+  port wrote with ``save_ss_checkpoint`` (the same layout);
+- an npz pack from ``scripts/convert_checkpoint.py --kind audiosep`` (the
+  JAX package's parameter tree, '/'-joined keys).
+
+An orbax directory written by the JAX trainer needs orbax and JAX to read;
+convert it to an npz pack first.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from lass_torch.convert.from_jax import resunet30_state_dict_from_jax
+from lass_torch.models.film import resunet30_film_spec
+
+# frozen DFT conv weights of the reference's STFT/ISTFT front and back end;
+# the port computes the transforms itself
+_IGNORED_PREFIXES = ("base.stft.", "base.istft.")
+
+
+def load_npz_variables(path: str) -> Dict[str, Any]:
+    """Load an npz parameter pack back into nested dicts keyed by the
+    '/'-joined paths."""
+    out: Dict[str, Any] = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return out
+
+
+def _film_key(path) -> str:
+    return "film." + "->".join(path)
+
+
+def pack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Replace the reference's per-path FiLM Linears with the fused
+    ``film.weight`` / ``film.bias``, rows in spec order."""
+    spec = resunet30_film_spec()
+    out = {k: v for k, v in sd.items() if not k.startswith("film.")}
+    out["film.weight"] = torch.cat(
+        [sd[f"{_film_key(p)}.weight"] for p, _, _ in spec], dim=0)
+    out["film.bias"] = torch.cat(
+        [sd[f"{_film_key(p)}.bias"] for p, _, _ in spec], dim=0)
+    return out
+
+
+def unpack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``pack_film``: the reference's per-path Linears."""
+    out = {k: v for k, v in sd.items() if not k.startswith("film.")}
+    offset = 0
+    for path, feat, _ in resunet30_film_spec():
+        key = _film_key(path)
+        out[f"{key}.weight"] = sd["film.weight"][offset:offset + feat]
+        out[f"{key}.bias"] = sd["film.bias"][offset:offset + feat]
+        offset += feat
+    return out
+
+
+def separator_state_dict(checkpoint_path: str) -> Dict[str, torch.Tensor]:
+    """Read a separator checkpoint (see the module docstring) into the
+    port's ResUNet30 state-dict layout."""
+    if os.path.isdir(checkpoint_path):
+        raise ValueError(
+            f"{checkpoint_path} is a directory (an orbax checkpoint of the "
+            "JAX trainer?). Reading orbax needs JAX; write an npz pack "
+            "with scripts/convert_checkpoint.py or the JAX package and "
+            "load that.")
+    if not os.path.exists(checkpoint_path):
+        raise FileNotFoundError(checkpoint_path)
+    if checkpoint_path.endswith(".npz"):
+        pack = load_npz_variables(checkpoint_path)
+        return resunet30_state_dict_from_jax(pack)
+    blob = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    sd = {k: torch.as_tensor(v) for k, v in blob.items()}
+    if any(k.startswith("ss_model.") for k in sd):
+        sd = {k[len("ss_model."):]: v for k, v in sd.items()
+              if k.startswith("ss_model.")}
+    sd = {k: v for k, v in sd.items() if not k.startswith(_IGNORED_PREFIXES)}
+    if "film.weight" not in sd:
+        sd = pack_film(sd)
+    return sd
+
+
+def load_separator(model: torch.nn.Module, checkpoint_path: str) -> None:
+    """Load a checkpoint into a port ResUNet30. Only BatchNorm's
+    ``num_batches_tracked`` counters may be absent; any other missing or
+    unexpected key raises."""
+    sd = separator_state_dict(checkpoint_path)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint {checkpoint_path} does not fit ResUNet30: "
+                       f"missing {missing[:8]}, unexpected {unexpected[:8]}")
+
+
+def save_ss_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Write the separator in the reference's Lightning layout
+    (``state_dict`` with ``ss_model.`` keys and per-path FiLM Linears), which
+    the port, the JAX package's loader and the reference all read."""
+    sd = unpack_film({k: v.detach().cpu()
+                      for k, v in model.state_dict().items()})
+    torch.save({"state_dict": {f"ss_model.{k}": v for k, v in sd.items()}},
+               path)
+
+
+def load_ss_model(configs, checkpoint_path: str, query_encoder=None,
+                  device: str = "cuda"):
+    """Build the separator from a config (dict or Config) and a checkpoint;
+    returns a SeparationInference on ``device`` with the CLAP query encoder
+    (a random-weight one unless ``query_encoder`` is given)."""
+    from lass_torch.config import Config, _build
+    from lass_torch.evaluation.dcase import SeparationInference
+    from lass_torch.models.query_encoder import CLAPQueryEncoder
+    from lass_torch.models.resunet import build_model
+
+    cfg = configs if isinstance(configs, Config) else _build(Config, configs)
+    model = build_model(cfg)
+    load_separator(model, checkpoint_path)
+    if query_encoder is None:
+        query_encoder = CLAPQueryEncoder(device=device)
+    return SeparationInference(model, query_encoder, device=device)

@@ -1,0 +1,140 @@
+"""lass_tpu parameter trees (numpy) -> the port's state dicts.
+
+The inverse of the JAX package's torch -> JAX converters
+(``lass_tpu/convert/torch_to_jax.py``), written from its layout rules:
+
+- Linear:        kernel (in, out)        -> weight (out, in)
+- Conv2d:        kernel (kh, kw, I, O)   -> weight (O, I, kh, kw)
+- ConvTranspose: kernel (kh, kw, O, I)   -> weight (I, O, kh, kw)
+- BatchNorm:     scale/bias + batch_stats mean/var -> weight/bias +
+                 running_mean/running_var (num_batches_tracked 0)
+- FiLM:          the fused kernel (cond, sum C_i), columns in spec order
+                 -> the port's fused ``film.weight`` (sum C_i, cond), rows
+                 in the same order
+- RoBERTa:       fused QKV -> HF query/key/value
+
+Inputs are nested dicts of numpy arrays (``{'params', 'batch_stats'}`` for
+the separator), as the JAX package holds them or as an npz pack from
+scripts/convert_checkpoint.py stores them. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+_ENCODERS = ["encoder_block1", "encoder_block2", "encoder_block3",
+             "encoder_block4", "encoder_block5", "encoder_block6",
+             "conv_block7a"]
+_DECODERS = ["decoder_block1", "decoder_block2", "decoder_block3",
+             "decoder_block4", "decoder_block5", "decoder_block6"]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # owned copy
+
+
+def _conv_w(kernel) -> torch.Tensor:
+    """(kh, kw, I, O) -> (O, I, kh, kw); the same permutation takes a
+    transposed-conv kernel (kh, kw, O, I) to torch's (I, O, kh, kw)."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def _linear(out: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(out: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _conv_w(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _bn(out: StateDict, prefix: str, p: Dict, s: Dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(s["mean"])
+    out[f"{prefix}.running_var"] = _t(s["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv_block(out: StateDict, prefix: str, p: Dict, s: Dict) -> None:
+    _bn(out, f"{prefix}.bn1", p["bn1"], s["bn1"])
+    _bn(out, f"{prefix}.bn2", p["bn2"], s["bn2"])
+    _conv(out, f"{prefix}.conv1", p["conv1"])
+    _conv(out, f"{prefix}.conv2", p["conv2"])
+    if "shortcut" in p:
+        _conv(out, f"{prefix}.shortcut", p["shortcut"])
+
+
+def resunet30_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
+    """``{'params', 'batch_stats'}`` of lass_tpu ResUNet30 -> the port's
+    ResUNet30 state dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    base_p, base_s = params["base"], stats["base"]
+    out: StateDict = {}
+    _linear(out, "film", params["film"])
+    _bn(out, "base.bn0", params["bn0"], stats["bn0"])
+    _conv(out, "base.pre_conv", base_p["pre_conv"])
+    _conv(out, "base.after_conv", base_p["after_conv"])
+    for name in _ENCODERS:
+        _conv_block(out, f"base.{name}.conv_block1",
+                    base_p[name]["conv_block1"], base_s[name]["conv_block1"])
+    for name in _DECODERS:
+        p, s = base_p[name], base_s[name]
+        _bn(out, f"base.{name}.bn1", p["bn1"], s["bn1"])
+        out[f"base.{name}.conv1.weight"] = _conv_w(p["conv1"]["kernel"])
+        _conv_block(out, f"base.{name}.conv_block2", p["conv_block2"],
+                    s["conv_block2"])
+    return out
+
+
+def roberta_state_dict_from_jax(params: Dict[str, Any], num_layers: int,
+                                prefix: str = "") -> StateDict:
+    """lass_tpu RobertaModel params -> HF ``RobertaModel`` names."""
+    out: StateDict = {}
+    emb = f"{prefix}embeddings"
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        out[f"{emb}.{name}.weight"] = _t(params[name]["embedding"])
+    out[f"{emb}.LayerNorm.weight"] = _t(params["embeddings_ln"]["scale"])
+    out[f"{emb}.LayerNorm.bias"] = _t(params["embeddings_ln"]["bias"])
+    for i in range(num_layers):
+        p = params[f"layer_{i}"]
+        e = f"{prefix}encoder.layer.{i}"
+        qkv_w = np.asarray(p["attention"]["qkv"]["kernel"]).T  # (3h, h)
+        qkv_b = np.asarray(p["attention"]["qkv"]["bias"])
+        h = qkv_w.shape[1]
+        for j, name in enumerate(("query", "key", "value")):
+            out[f"{e}.attention.self.{name}.weight"] = _t(
+                qkv_w[j * h:(j + 1) * h])
+            out[f"{e}.attention.self.{name}.bias"] = _t(
+                qkv_b[j * h:(j + 1) * h])
+        _linear(out, f"{e}.attention.output.dense", p["attention"]["out"])
+        out[f"{e}.attention.output.LayerNorm.weight"] = _t(
+            p["attention_ln"]["scale"])
+        out[f"{e}.attention.output.LayerNorm.bias"] = _t(
+            p["attention_ln"]["bias"])
+        _linear(out, f"{e}.intermediate.dense", p["intermediate"])
+        _linear(out, f"{e}.output.dense", p["output"])
+        out[f"{e}.output.LayerNorm.weight"] = _t(p["output_ln"]["scale"])
+        out[f"{e}.output.LayerNorm.bias"] = _t(p["output_ln"]["bias"])
+    _linear(out, f"{prefix}pooler.dense", params["pooler"])
+    return out
+
+
+def clap_text_state_dict_from_jax(params: Dict[str, Any], num_layers: int
+                                  ) -> StateDict:
+    """lass_tpu CLAPTextEncoder params -> the port's CLAPTextEncoder state
+    dict, whose keys are a CLAP checkpoint's (``text_branch.*`` HF RoBERTa
+    names, ``text_projection.{0,2}``)."""
+    out = roberta_state_dict_from_jax(params["roberta"], num_layers,
+                                      prefix="text_branch.")
+    _linear(out, "text_projection.0", params["text_projection"]["fc1"])
+    _linear(out, "text_projection.2", params["text_projection"]["fc2"])
+    return out

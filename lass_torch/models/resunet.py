@@ -1,0 +1,180 @@
+"""ResUNet30 separator in PyTorch (counterpart of lass_tpu/models/resunet.py).
+
+Waveform in, waveform out, FiLM-conditioned on a 512-d caption embedding:
+STFT (window 1024, hop 160, center reflect) -> magnitude -> ``bn0`` over
+the 513 frequency bins -> time padded to a multiple of 32 and frequency
+cropped to 512 bins -> UNet (6 encoder blocks, a bottleneck, 6 decoder
+blocks, ``after_conv``) -> K=3 complex mask with phase rotation against the
+mixture -> ISTFT with the Nyquist bin exactly zero.
+
+Layout is NCHW, (B, C, T, F), inside the UNet. The JAX package's frequency
+folding is a TPU layout whose output equals the plain layout exactly, so
+it has no counterpart here. Mixed precision follows the JAX package:
+activations in ``compute_dtype``, float32 parameters cast at use, float32
+DSP and mask math.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lass_torch.dsp.stft import STFTConfig, istft, stft
+from lass_torch.models.film import FusedFiLM, resunet30_film_spec
+from lass_torch.nn.blocks import DecoderBlockRes1B, EncoderBlockRes1B
+from lass_torch.nn.layers import BatchNorm, Conv2d
+from lass_torch.ops.masking import apply_complex_mask_ri
+
+TIME_DOWNSAMPLE_RATIO = 32  # 2 ** (number of time-downsampling encoder blocks)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class ResUNet30Base(nn.Module):
+    """(B, C_in, T, 512) -> (B, C_out * K, T, 512) mask logits. Holds
+    ``bn0`` too, where the reference keeps it (``base.bn0``)."""
+
+    def __init__(self, input_channels: int = 1, output_channels: int = 1,
+                 K: int = 3, freq_bins: int = 513, momentum: float = 0.01):
+        super().__init__()
+        self.bn0 = BatchNorm(freq_bins, momentum, dim=3)
+        self.pre_conv = Conv2d(input_channels, 32, (1, 1))
+        enc = [("encoder_block1", 32, 32, (2, 2)),
+               ("encoder_block2", 32, 64, (2, 2)),
+               ("encoder_block3", 64, 128, (2, 2)),
+               ("encoder_block4", 128, 256, (2, 2)),
+               ("encoder_block5", 256, 384, (2, 2)),
+               ("encoder_block6", 384, 384, (1, 2)),
+               ("conv_block7a", 384, 384, (1, 1))]
+        for name, cin, cout, down in enc:
+            self.add_module(name, EncoderBlockRes1B(cin, cout, down,
+                                                    momentum=momentum))
+        dec = [("decoder_block1", 384, 384, (1, 2)),
+               ("decoder_block2", 384, 384, (2, 2)),
+               ("decoder_block3", 384, 256, (2, 2)),
+               ("decoder_block4", 256, 128, (2, 2)),
+               ("decoder_block5", 128, 64, (2, 2)),
+               ("decoder_block6", 64, 32, (2, 2))]
+        for name, cin, cout, up in dec:
+            self.add_module(name, DecoderBlockRes1B(cin, cout, up,
+                                                    momentum=momentum))
+        self.after_conv = Conv2d(32, output_channels * K, (1, 1))
+
+    def forward(self, x: torch.Tensor, film: Dict[str, Any]) -> torch.Tensor:
+        x = self.pre_conv(x)
+        x1p, x1 = self.encoder_block1(x, film["encoder_block1"])
+        x2p, x2 = self.encoder_block2(x1p, film["encoder_block2"])
+        x3p, x3 = self.encoder_block3(x2p, film["encoder_block3"])
+        x4p, x4 = self.encoder_block4(x3p, film["encoder_block4"])
+        x5p, x5 = self.encoder_block5(x4p, film["encoder_block5"])
+        x6p, x6 = self.encoder_block6(x5p, film["encoder_block6"])
+        xc, _ = self.conv_block7a(x6p, film["conv_block7a"])
+        h = self.decoder_block1(xc, x6, film["decoder_block1"])
+        h = self.decoder_block2(h, x5, film["decoder_block2"])
+        h = self.decoder_block3(h, x4, film["decoder_block3"])
+        h = self.decoder_block4(h, x3, film["decoder_block4"])
+        h = self.decoder_block5(h, x2, film["decoder_block5"])
+        h = self.decoder_block6(h, x1, film["decoder_block6"])
+        return self.after_conv(h)
+
+
+def mask_inputs(mask_logits: torch.Tensor, real_in: torch.Tensor,
+                imag_in: torch.Tensor, output_channels: int, K: int = 3):
+    """The five (B * C_out, T, F) float32 inputs of the mask kernel, as
+    views where the dtype allows: the logit channel slices k = 0, 1, 2 of
+    (B, C_out * K, T, F) (channel o * K + k) and the spectrum (B, C, T, F+1)
+    cropped to F bins. Needs C == C_out."""
+    b, _, t, f = mask_logits.shape
+    if real_in.shape[1] != output_channels:
+        raise ValueError("mask apply needs input_channels == output_channels")
+    x = mask_logits.float().view(b, output_channels, K, t, f)
+
+    def rows(a):  # (B, C_out, T, F) view -> (B * C_out, T, F) view
+        return a.reshape(b * output_channels, t, f)
+
+    return (rows(x[:, :, 0]), rows(x[:, :, 1]), rows(x[:, :, 2]),
+            rows(real_in[..., :f]), rows(imag_in[..., :f]))
+
+
+def apply_mask_and_reconstruct(mask_logits: torch.Tensor,
+                               real_in: torch.Tensor, imag_in: torch.Tensor,
+                               audio_length: int, stft_cfg: STFTConfig,
+                               output_channels: int, K: int = 3
+                               ) -> torch.Tensor:
+    """K=3 complex mask + phase rotation + ISTFT.
+
+    mask_logits: (B, C_out * K, T, 512) cropped to the spectrum's T;
+    real_in/imag_in: the raw mixture spectrum (B, C, T, 513) float32. The
+    mask kernel reads the logit channel slices and the 513 -> 512 crop as
+    strided views (``mask_inputs``); the Nyquist bin's output is exactly
+    zero (zero logits there give a zero rotation factor), so the ISTFT
+    runs with the truncated basis. Returns (B, C_out, L).
+    """
+    b, _, _, f = mask_logits.shape
+    out_real, out_imag = apply_complex_mask_ri(*mask_inputs(
+        mask_logits, real_in, imag_in, output_channels, K))
+    truncated = f == stft_cfg.freq_bins - 1
+    wav = istft(out_real, out_imag, audio_length, stft_cfg,
+                truncated_nyquist=truncated)
+    return wav.reshape(b, output_channels, audio_length)
+
+
+class ResUNet30(nn.Module):
+    """Full separator: ``forward({'mixture': (B, C, L), 'condition':
+    (B, 512)}) -> {'waveform': (B, C, L)}`` (the reference's API).
+
+    State-dict keys are the reference torch names under ``base.``, except
+    that FiLM is one fused Linear (``film.weight``, ``film.bias``)."""
+
+    def __init__(self, input_channels: int = 1, output_channels: int = 1,
+                 condition_size: int = 512, K: int = 3,
+                 window_size: int = 1024, hop_size: int = 160,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.output_channels = output_channels
+        self.K = K
+        self.compute_dtype = compute_dtype
+        self.stft_cfg = STFTConfig(n_fft=window_size, hop_length=hop_size)
+        self.film = FusedFiLM(resunet30_film_spec(), condition_size)
+        self.base = ResUNet30Base(input_channels, output_channels, K,
+                                  self.stft_cfg.freq_bins)
+
+    def forward(self, input_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        mixture = input_dict["mixture"]  # (B, C, L)
+        film = self.film(input_dict["condition"])
+        audio_length = mixture.shape[-1]
+
+        real_in, imag_in = stft(mixture, self.stft_cfg)  # (B, C, T, 513)
+        mag = torch.sqrt(torch.clamp(real_in ** 2 + imag_in ** 2,
+                                     min=1e-10))
+        origin_t = mag.shape[2]
+        pad_t = -origin_t % TIME_DOWNSAMPLE_RATIO
+        # cast before bn0 so the UNet-facing chain stays in compute_dtype
+        x = self.base.bn0(mag.to(self.compute_dtype))
+        x = F.pad(x, (0, 0, 0, pad_t))[..., :self.stft_cfg.freq_bins - 1]
+        out = self.base(x, film)[:, :, :origin_t]
+        waveform = apply_mask_and_reconstruct(
+            out, real_in, imag_in, audio_length, self.stft_cfg,
+            self.output_channels, self.K)
+        return {"waveform": waveform}
+
+
+def build_model(cfg) -> ResUNet30:
+    """ResUNet30 from a Config (``lass_torch.config``)."""
+    if cfg.model.model_type != "ResUNet30":
+        raise NotImplementedError(cfg.model.model_type)
+    if cfg.model.compute_dtype not in _DTYPES:
+        raise ValueError(f"model.compute_dtype must be one of "
+                         f"{sorted(_DTYPES)}, got {cfg.model.compute_dtype!r}")
+    if cfg.model.dsp_precision not in ("default", "high", "highest"):
+        raise ValueError(
+            f"model.dsp_precision must be one of default/high/highest, "
+            f"got {cfg.model.dsp_precision!r}")
+    return ResUNet30(
+        input_channels=cfg.model.input_channels,
+        output_channels=cfg.model.output_channels,
+        condition_size=cfg.model.condition_size,
+        compute_dtype=_DTYPES[cfg.model.compute_dtype])

@@ -16,6 +16,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels have no CPU "
+        "mode); the test skips itself when torch sees no card")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(1234)
