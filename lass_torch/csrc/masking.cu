@@ -1,12 +1,8 @@
 // K=3 complex-mask apply with phase rotation, one pass over the spectrum.
 //
 // Replaces the Pallas TPU kernel lass_tpu/ops/pallas_masking.py
-// apply_complex_mask_ri (body _kernel_ri, formula _mask_math_from_ri):
-//
-//   mag      = sqrt(max(re^2 + im^2, 1e-10)),  cos = re / mag,  sin = im / mag
-//   mask_mag = sigmoid(l_mag)
-//   (mr, mi) = tanh(l_real, l_imag) / max(|tanh(l_real, l_imag)|, 1e-10)
-//   out      = relu(mag * mask_mag) * (cos*mr - sin*mi, sin*mr + cos*mi)
+// apply_complex_mask_ri (body _kernel_ri, formula _mask_math_from_ri); the
+// per-element chain is lass::mask_one in mask_math.cuh.
 //
 // What bounds it on an H100: memory. Five float32 inputs are read and two
 // float32 outputs written, 28 bytes per element for some 30 floating-point
@@ -21,13 +17,15 @@
 // threads take consecutive elements of a row, so every load and store is
 // coalesced; where every row stride and base pointer allows, a thread
 // moves a 4-wide vector (16-byte accesses). The outputs are contiguous
-// (N, T, F). Plain IEEE expf/tanhf/sqrtf and division: no fast-math.
+// (N, T, F).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lass_torch/ops/_build.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "mask_math.cuh"
 
 namespace {
 
@@ -43,25 +41,6 @@ struct MaskArgs {
   float* out_im;
   int64_t n, t, f;
 };
-
-__device__ __forceinline__ void mask_one(float lm, float lr, float li,
-                                         float re, float im,
-                                         float* o_re, float* o_im) {
-  const float mag = sqrtf(fmaxf(re * re + im * im, 1e-10f));
-  const float cos_in = re / mag;
-  const float sin_in = im / mag;
-  const float mask_mag = 1.0f / (1.0f + expf(-lm));
-  const float mr = tanhf(lr);
-  const float mi = tanhf(li);
-  const float denom = fmaxf(sqrtf(mr * mr + mi * mi), 1e-10f);
-  const float mask_cos = mr / denom;
-  const float mask_sin = mi / denom;
-  const float out_cos = cos_in * mask_cos - sin_in * mask_sin;
-  const float out_sin = sin_in * mask_cos + cos_in * mask_sin;
-  const float out_mag = fmaxf(mag * mask_mag, 0.0f);
-  *o_re = out_mag * out_cos;
-  *o_im = out_mag * out_sin;
-}
 
 template <int kVec>
 __global__ void __launch_bounds__(256)
@@ -88,14 +67,14 @@ __global__ void __launch_bounds__(256)
       const float4 re = *reinterpret_cast<const float4*>(a.re.ptr + o_re);
       const float4 im = *reinterpret_cast<const float4*>(a.im.ptr + o_im);
       float4 r, m;
-      mask_one(lm.x, lr.x, li.x, re.x, im.x, &r.x, &m.x);
-      mask_one(lm.y, lr.y, li.y, re.y, im.y, &r.y, &m.y);
-      mask_one(lm.z, lr.z, li.z, re.z, im.z, &r.z, &m.z);
-      mask_one(lm.w, lr.w, li.w, re.w, im.w, &r.w, &m.w);
+      lass::mask_one(lm.x, lr.x, li.x, re.x, im.x, &r.x, &m.x);
+      lass::mask_one(lm.y, lr.y, li.y, re.y, im.y, &r.y, &m.y);
+      lass::mask_one(lm.z, lr.z, li.z, re.z, im.z, &r.z, &m.z);
+      lass::mask_one(lm.w, lr.w, li.w, re.w, im.w, &r.w, &m.w);
       *reinterpret_cast<float4*>(a.out_re + o_out) = r;
       *reinterpret_cast<float4*>(a.out_im + o_out) = m;
     } else {
-      mask_one(a.l_mag.ptr[o_lm], a.l_real.ptr[o_lr], a.l_imag.ptr[o_li],
+      lass::mask_one(a.l_mag.ptr[o_lm], a.l_real.ptr[o_lr], a.l_imag.ptr[o_li],
                a.re.ptr[o_re], a.im.ptr[o_im], a.out_re + o_out,
                a.out_im + o_out);
     }

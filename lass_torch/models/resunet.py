@@ -12,6 +12,16 @@ folding is a TPU layout whose output equals the plain layout exactly, so
 it has no counterpart here. Mixed precision follows the JAX package:
 activations in ``compute_dtype``, float32 parameters cast at use, float32
 DSP and mask math.
+
+The fused-conv eval configuration is the JAX package's opt-in one, with
+its switches as constructor keywords (all off by default): ``sparse_conv``
+(``fused_act_conv3x3`` for every 3x3 conv of the two widest levels),
+``fused_conv_block`` (``fused_residual_conv_block`` for encoder_block1's
+block), ``fused_convT`` (``fused_act_convT`` for decoder_block5/6's
+up-sampling), ``fuse_head`` (``apply_head_mask``: after_conv and the mask
+in one kernel, one input channel only). With any of them on, the UNet's
+activations are ``torch.channels_last`` in memory (logical shapes and
+state dicts unchanged).
 """
 from __future__ import annotations
 
@@ -24,21 +34,48 @@ import torch.nn.functional as F
 from lass_torch.dsp.stft import STFTConfig, istft, stft
 from lass_torch.models.film import FusedFiLM, resunet30_film_spec
 from lass_torch.nn.blocks import DecoderBlockRes1B, EncoderBlockRes1B
+from lass_torch.nn.fused import FusedDecoderBlockRes1B, FusedEncoderBlockRes1B
 from lass_torch.nn.layers import BatchNorm, Conv2d
-from lass_torch.ops.masking import apply_complex_mask_ri
+from lass_torch.ops.masking import apply_complex_mask_ri, apply_head_mask
 
 TIME_DOWNSAMPLE_RATIO = 32  # 2 ** (number of time-downsampling encoder blocks)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# the serving configurations: ResUNet30 keywords of each (the fused ones
+# are the JAX package's opt-in fused-conv eval configuration)
+CONFIGS = {
+    "default": {},
+    "A": dict(sparse_conv=True, fused_convT=True, fuse_head=True),
+    "B": dict(fused_conv_block=True, fused_convT=True, fuse_head=True),
+}
+
+
+# the two widest levels, where the JAX package runs its fused-conv kernels
+_WIDE = ("encoder_block1", "encoder_block2", "decoder_block5",
+         "decoder_block6")
+
 
 class ResUNet30Base(nn.Module):
-    """(B, C_in, T, 512) -> (B, C_out * K, T, 512) mask logits. Holds
-    ``bn0`` too, where the reference keeps it (``base.bn0``)."""
+    """(B, C_in, T, 512) -> (B, C_out * K, T, 512) mask logits, or with
+    the fused head decoder_block6's output (B, 32, T, 512), which the head
+    kernel takes with after_conv's parameters. Holds ``bn0`` too, where the
+    reference keeps it (``base.bn0``). The fused switches (module
+    docstring) route the wide levels through the fused blocks of
+    ``nn/fused.py``."""
 
     def __init__(self, input_channels: int = 1, output_channels: int = 1,
-                 K: int = 3, freq_bins: int = 513, momentum: float = 0.01):
+                 K: int = 3, freq_bins: int = 513, momentum: float = 0.01,
+                 sparse_conv: bool = False, fused_conv_block: bool = False,
+                 fused_convT: bool = False, fuse_head: bool = False):
         super().__init__()
+        fused = sparse_conv or fused_conv_block or fused_convT
+        # the fused head takes one input channel (lass_tpu's rule)
+        self.fuse_head = fuse_head and input_channels == 1 and K == 3
+        # the fused kernels take channels_last activations
+        self.channels_last = fused or self.fuse_head
+        block_options = dict(sparse_conv=sparse_conv,
+                             fused_conv_block=fused_conv_block)
         self.bn0 = BatchNorm(freq_bins, momentum, dim=3)
         self.pre_conv = Conv2d(input_channels, 32, (1, 1))
         enc = [("encoder_block1", 32, 32, (2, 2)),
@@ -49,8 +86,13 @@ class ResUNet30Base(nn.Module):
                ("encoder_block6", 384, 384, (1, 2)),
                ("conv_block7a", 384, 384, (1, 1))]
         for name, cin, cout, down in enc:
-            self.add_module(name, EncoderBlockRes1B(cin, cout, down,
-                                                    momentum=momentum))
+            if fused and name in _WIDE:
+                block = FusedEncoderBlockRes1B(cin, cout, down,
+                                               momentum=momentum,
+                                               **block_options)
+            else:
+                block = EncoderBlockRes1B(cin, cout, down, momentum=momentum)
+            self.add_module(name, block)
         dec = [("decoder_block1", 384, 384, (1, 2)),
                ("decoder_block2", 384, 384, (2, 2)),
                ("decoder_block3", 384, 256, (2, 2)),
@@ -58,12 +100,20 @@ class ResUNet30Base(nn.Module):
                ("decoder_block5", 128, 64, (2, 2)),
                ("decoder_block6", 64, 32, (2, 2))]
         for name, cin, cout, up in dec:
-            self.add_module(name, DecoderBlockRes1B(cin, cout, up,
-                                                    momentum=momentum))
+            if fused and name in _WIDE:
+                block = FusedDecoderBlockRes1B(cin, cout, up,
+                                               momentum=momentum,
+                                               fused_convT=fused_convT,
+                                               **block_options)
+            else:
+                block = DecoderBlockRes1B(cin, cout, up, momentum=momentum)
+            self.add_module(name, block)
         self.after_conv = Conv2d(32, output_channels * K, (1, 1))
 
     def forward(self, x: torch.Tensor, film: Dict[str, Any]) -> torch.Tensor:
         x = self.pre_conv(x)
+        if self.channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
         x1p, x1 = self.encoder_block1(x, film["encoder_block1"])
         x2p, x2 = self.encoder_block2(x1p, film["encoder_block2"])
         x3p, x3 = self.encoder_block3(x2p, film["encoder_block3"])
@@ -77,7 +127,7 @@ class ResUNet30Base(nn.Module):
         h = self.decoder_block4(h, x3, film["decoder_block4"])
         h = self.decoder_block5(h, x2, film["decoder_block5"])
         h = self.decoder_block6(h, x1, film["decoder_block6"])
-        return self.after_conv(h)
+        return h if self.fuse_head else self.after_conv(h)
 
 
 def mask_inputs(mask_logits: torch.Tensor, real_in: torch.Tensor,
@@ -121,25 +171,52 @@ def apply_mask_and_reconstruct(mask_logits: torch.Tensor,
     return wav.reshape(b, output_channels, audio_length)
 
 
+def apply_fused_head_and_reconstruct(h: torch.Tensor, w: torch.Tensor,
+                                     bias: torch.Tensor,
+                                     real_in: torch.Tensor,
+                                     imag_in: torch.Tensor, audio_length: int,
+                                     stft_cfg: STFTConfig,
+                                     output_channels: int) -> torch.Tensor:
+    """Fused after_conv + K=3 mask (one kernel) + ISTFT.
+
+    h: decoder_block6's output (B, 32, T_pad, 512), read for its first T
+    rows; w/bias: after_conv's parameters; real_in/imag_in: the raw mixture
+    spectrum (B, 1, T, 513), read as its first 512 bins. Counterpart of
+    lass_tpu/models/resunet.py apply_fused_head_and_reconstruct: the
+    Nyquist bin's output is exactly zero there too. Returns (B, C_out, L).
+    """
+    b, _, _, f = h.shape
+    out_real, out_imag = apply_head_mask(h, w, bias, real_in, imag_in,
+                                         output_channels)
+    wav = istft(out_real, out_imag, audio_length, stft_cfg,
+                truncated_nyquist=f == stft_cfg.freq_bins - 1)
+    return wav.reshape(b, output_channels, audio_length)
+
+
 class ResUNet30(nn.Module):
     """Full separator: ``forward({'mixture': (B, C, L), 'condition':
     (B, 512)}) -> {'waveform': (B, C, L)}`` (the reference's API).
 
     State-dict keys are the reference torch names under ``base.``, except
-    that FiLM is one fused Linear (``film.weight``, ``film.bias``)."""
+    that FiLM is one fused Linear (``film.weight``, ``film.bias``). The
+    fused switches (module docstring) leave the state dict as it is."""
 
     def __init__(self, input_channels: int = 1, output_channels: int = 1,
                  condition_size: int = 512, K: int = 3,
                  window_size: int = 1024, hop_size: int = 160,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 sparse_conv: bool = False, fused_conv_block: bool = False,
+                 fused_convT: bool = False, fuse_head: bool = False):
         super().__init__()
         self.output_channels = output_channels
         self.K = K
         self.compute_dtype = compute_dtype
         self.stft_cfg = STFTConfig(n_fft=window_size, hop_length=hop_size)
         self.film = FusedFiLM(resunet30_film_spec(), condition_size)
-        self.base = ResUNet30Base(input_channels, output_channels, K,
-                                  self.stft_cfg.freq_bins)
+        self.base = ResUNet30Base(
+            input_channels, output_channels, K, self.stft_cfg.freq_bins,
+            sparse_conv=sparse_conv, fused_conv_block=fused_conv_block,
+            fused_convT=fused_convT, fuse_head=fuse_head)
 
     def forward(self, input_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -155,6 +232,12 @@ class ResUNet30(nn.Module):
         # cast before bn0 so the UNet-facing chain stays in compute_dtype
         x = self.base.bn0(mag.to(self.compute_dtype))
         x = F.pad(x, (0, 0, 0, pad_t))[..., :self.stft_cfg.freq_bins - 1]
+        if self.base.fuse_head:
+            h = self.base(x, film)
+            after = self.base.after_conv
+            return {"waveform": apply_fused_head_and_reconstruct(
+                h, after.weight, after.bias, real_in, imag_in, audio_length,
+                self.stft_cfg, self.output_channels)}
         out = self.base(x, film)[:, :, :origin_t]
         waveform = apply_mask_and_reconstruct(
             out, real_in, imag_in, audio_length, self.stft_cfg,
@@ -162,8 +245,9 @@ class ResUNet30(nn.Module):
         return {"waveform": waveform}
 
 
-def build_model(cfg) -> ResUNet30:
-    """ResUNet30 from a Config (``lass_torch.config``)."""
+def build_model(cfg, **switches) -> ResUNet30:
+    """ResUNet30 from a Config (``lass_torch.config``); ``switches`` are
+    the fused-conv keywords (``CONFIGS``)."""
     if cfg.model.model_type != "ResUNet30":
         raise NotImplementedError(cfg.model.model_type)
     if cfg.model.compute_dtype not in _DTYPES:
@@ -177,4 +261,4 @@ def build_model(cfg) -> ResUNet30:
         input_channels=cfg.model.input_channels,
         output_channels=cfg.model.output_channels,
         condition_size=cfg.model.condition_size,
-        compute_dtype=_DTYPES[cfg.model.compute_dtype])
+        compute_dtype=_DTYPES[cfg.model.compute_dtype], **switches)

@@ -47,13 +47,16 @@ class ConvBlockRes(nn.Module):
 
 
 class EncoderBlockRes1B(nn.Module):
+    conv_block = ConvBlockRes  # subclasses swap in a fused block
+
     def __init__(self, in_channels: int, out_channels: int,
                  downsample: Tuple[int, int],
                  kernel_size: Tuple[int, int] = (3, 3),
-                 momentum: float = 0.01):
+                 momentum: float = 0.01, **block_options):
         super().__init__()
-        self.conv_block1 = ConvBlockRes(in_channels, out_channels,
-                                        kernel_size, momentum)
+        self.conv_block1 = self.conv_block(in_channels, out_channels,
+                                           kernel_size, momentum,
+                                           **block_options)
         self.downsample = tuple(downsample)
 
     def forward(self, x: torch.Tensor, film: Dict
@@ -69,15 +72,18 @@ class DecoderBlockRes1B(nn.Module):
     """Up-sample (kernel == stride transposed conv) + skip concat +
     residual conv block."""
 
+    conv_block = ConvBlockRes  # subclasses swap in a fused block
+
     def __init__(self, in_channels: int, out_channels: int,
                  upsample: Tuple[int, int],
                  kernel_size: Tuple[int, int] = (3, 3),
-                 momentum: float = 0.01):
+                 momentum: float = 0.01, **block_options):
         super().__init__()
         self.bn1 = BatchNorm(in_channels, momentum)
         self.conv1 = ConvTranspose2d(in_channels, out_channels, upsample)
-        self.conv_block2 = ConvBlockRes(out_channels * 2, out_channels,
-                                        kernel_size, momentum)
+        self.conv_block2 = self.conv_block(out_channels * 2, out_channels,
+                                           kernel_size, momentum,
+                                           **block_options)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor, film: Dict
                 ) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``lass_torch/csrc/*.cu`` source goes through ONE ``nvcc`` call into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds). The library lands in ``lass_torch/_build/``, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+Each ``lass_torch/csrc/*.cu`` source (with the ``*.cuh`` headers it
+includes) is compiled to an object by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds). The
+library lands in ``lass_torch/_build/``, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is loaded as it
+is. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,24 +60,37 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen), then raise if any failed."""
+    done = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
+    for cmd, proc, stdout, stderr in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    return "".join(stdout + stderr for _, _, stdout, stderr in done)
+
+
 def _compile(nvcc: str, sources, out_path: str, verbose: bool) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objects, procs = [], []
+        for src in sources:  # one nvcc per source, all at once
+            obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, src]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = _run(procs)
+        lib_tmp = os.path.join(tmp_dir, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objects]
+        report += _run([(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))])
         if verbose:
-            print(proc.stdout + proc.stderr, end="", flush=True)
-        os.replace(tmp, out_path)  # atomic: readers never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print(report, end="", flush=True)
+        os.replace(lib_tmp, out_path)  # atomic: readers never see half a file
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:
@@ -103,4 +118,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     fn = lib.lass_apply_complex_mask_ri
     fn.argtypes = ([ptr, i64, i64] * 5 + [ptr, ptr, i64, i64, i64, i64, ptr])
+    fn.restype = ctypes.c_int
+    fn = lib.lass_act_conv3x3
+    fn.argtypes = ([ptr, i64, i64, i64, i64] * 2
+                   + [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64,
+                      ptr])
+    fn.restype = ctypes.c_int
+    fn = lib.lass_residual_conv_block
+    fn.argtypes = ([ptr, i64, i64, i64] + [ptr] * 6
+                   + [ptr, i64, i64, i64, i64, i64, i64, i64, ptr])
+    fn.restype = ctypes.c_int
+    fn = lib.lass_act_convt
+    fn.argtypes = [ptr] * 6 + [i64] * 5 + [ptr]
+    fn.restype = ctypes.c_int
+    fn = lib.lass_head_mask
+    fn.argtypes = ([ptr, i64, i64, i64, i64, ptr, ptr, i64,
+                    ptr, i64, i64, ptr, i64, i64, ptr, ptr, i64, i64, i64,
+                    ptr])
     fn.restype = ctypes.c_int

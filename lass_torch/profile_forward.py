@@ -1,13 +1,16 @@
 """Where the separation forward's device time goes, by kernel family.
 
-    python -m lass_torch.profile_forward [--batch 16] [--seconds 10] [--iters 3]
+    python -m lass_torch.profile_forward [--config default|A|B] [--batch 16]
+        [--seconds 10] [--iters 3]
 
 Runs the full-width ResUNet30 forward (config/audiosep_base.yaml, random
-weights) on the GPU under ``torch.profiler`` after warm-up, then prints
-the device time per forward by kernel family (convolutions, matrix
-products, FFTs, the mask kernel, overlap-add, elementwise, other), the top
-kernels, and the device's busy share of the profiled window, with the
-card's name and power limit. Needs a CUDA device.
+weights) in the chosen serving configuration (``CONFIGS`` in
+``lass_torch/models/resunet.py``: the default, or the fused-conv A or B) on
+the GPU under ``torch.profiler`` after warm-up, then prints the device time
+per forward by kernel family (the port's own kernels, convolutions, matrix
+products, FFTs, overlap-add, elementwise, other), the top kernels, and the
+device's busy share of the profiled window, with the card's name and
+power limit. Needs a CUDA device.
 """
 import argparse
 import collections
@@ -18,6 +21,10 @@ import sys
 
 FAMILIES = [  # first match wins; matched against the lower-cased name
     ("mask kernel", ("apply_complex_mask_ri",)),
+    ("fused act+conv3x3 kernel", ("act_conv3x3",)),
+    ("fused conv block kernel", ("residual_conv_block",)),
+    ("fused act+convT kernel", ("act_convt",)),
+    ("fused head+mask kernel", ("head_mask",)),
     ("fft", ("fft",)),
     ("overlap-add (fold)", ("col2im", "im2col")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "nchwtonhwc",
@@ -38,6 +45,8 @@ def family(name: str) -> str:
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
+    parser.add_argument("--config", choices=("default", "A", "B"),
+                        default="default")
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--seconds", type=float, default=10.0)
     parser.add_argument("--iters", type=int, default=3)
@@ -47,7 +56,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from lass_torch.config import load_config
-    from lass_torch.models.resunet import build_model
+    from lass_torch.models.resunet import CONFIGS, build_model
 
     if not torch.cuda.is_available():
         print("profile_forward: torch sees no CUDA device", file=sys.stderr)
@@ -55,7 +64,7 @@ def main(argv=None):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(repo, "config", "audiosep_base.yaml"))
     torch.manual_seed(0)
-    model = build_model(cfg).cuda().eval()
+    model = build_model(cfg, **CONFIGS[args.config]).cuda().eval()
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"mixture": 0.1 * torch.randn(
                  args.batch, 1, int(args.seconds * 16000), generator=gen,
@@ -94,6 +103,7 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     result = {
         "card": card,
+        "config": args.config,
         "shape": [args.batch, 1, int(args.seconds * 16000)],
         "dtype": cfg.model.compute_dtype,
         "forward_ms_cuda_events": fwd_ms,
@@ -106,7 +116,8 @@ def main(argv=None):
         print("profile_forward: the profiler recorded no device time",
               file=sys.stderr)
     print(f"card: {card}")
-    print(f"forward {result['shape']} {result['dtype']}: {fwd_ms:.2f} ms "
+    print(f"forward {result['shape']} {result['dtype']}, config "
+          f"{args.config}: {fwd_ms:.2f} ms "
           f"(CUDA events), device busy {busy:.2f} ms")
     for fam, ms in by_family.most_common():
         print(f"  {fam:22s} {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%")
