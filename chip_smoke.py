@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -10,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    parallel, at first use);
 3. each kernel against its plain PyTorch version at every distinct shape
    the serving forward gives it (B=16 clips of 10 s) and at ragged shapes,
-   plus gradient cases for the two mask kernels;
+   plus gradient cases for the mask kernels; the six-input mask mode (B2,
+   no caller in either package: this phase is its path) at the serving
+   shape; the time-tap conv (B7) at its microbench's shape (16, 1024, 128,
+   128) and ragged ones, activation off and on;
 4. serve: ``load_ss_model`` on a random-weight full-width ResUNet30
    (config/audiosep_base.yaml, bf16) with the full RoBERTa-base caption
    encoder, four requests of 10 s, 4.5 s and 1 s, one caption repeated so
@@ -26,7 +30,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. times with CUDA events: the B=16 x 10 s bf16 forward of the default
    configuration, A and B, caption encoding, each kernel against its bound
    and its plain version at each serving shape (cuDNN's bare conv beside
-   the fused 3x3 conv as context).
+   the fused 3x3 conv as context), the B7 microbench
+   (``lass_torch.microbench_tridiag``, its launches counted), and the bf16
+   train step's steps/s and peak memory at the phase-7 shape;
+7. train: ``python -m lass_torch.train`` in a subprocess, full-width
+   ResUNet30 in bf16 on 10 s segments of a synthetic corpus with the full
+   RoBERTa-base caption encoder, TRAIN_BATCH clips per step, 4 steps:
+   finite losses, checkpoints at steps 1, 2 and 4, one B1 launch per
+   step's forward (the subprocess writes its launch counts); then a
+   resume from step 2 to 4 whose losses match the first run's within
+   1e-5 relative; then the step-4 checkpoint serves one 10 s request
+   through ``load_ss_model``;
+8. one float32 train step (TF32 off), B=2 x 1 s, from the same weights
+   and batch on the card and on the CPU: loss within 1e-5 relative, grads
+   and updated BN running statistics within 1e-4.
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
@@ -62,6 +79,10 @@ KERNELS = [
      "lass_torch/csrc/convt.cu", "lass_tpu/ops/pallas_convt.py:51"),
     ("apply_head_mask", "masking", "HEAD_LAUNCHES",
      "lass_torch/csrc/head_mask.cu", "lass_tpu/ops/pallas_masking.py:248"),
+    ("apply_complex_mask", "masking", "B2_LAUNCHES",
+     "lass_torch/csrc/masking.cu", "lass_tpu/ops/pallas_masking.py:144"),
+    ("timetap_conv", "timetap_conv", "LAUNCHES",
+     "lass_torch/csrc/timetap_conv.cu", "scripts/microbench_tridiag.py:80"),
 ]
 # launches per forward of each configuration; every other kernel: 0
 PER_FORWARD = {
@@ -80,6 +101,9 @@ BF16_ULP = 2.0 ** -7
 # two bf16 forwards that round at different places differ by about what
 # bf16 costs against float32 (tests/test_torch_resunet.py)
 BF16_FORWARD_REL = 5e-2
+# clips of 10 s per train step in phase 7, fixed after measuring the step's
+# peak memory on an 80 GB H100 (PERF.md)
+TRAIN_BATCH = 16
 RESULTS = {}
 
 
@@ -137,44 +161,91 @@ def serving_mask_inputs(device, b=16, seconds=10.0, t_pad=1024, seed=0):
     return mask_inputs(logits[:, :, :t], re, im, 1)
 
 
-def check_mask_kernel(device):
-    """Phase 3: kernel vs plain at the serving views, a contiguous 4-wide
-    case and a ragged scalar case; a gradient through the autograd.Function.
-    Returns the largest error at the serving shape."""
+def mag_cos_sin(re, im):
+    """The mixture terms B2 takes precomputed."""
+    import torch
+
+    mag = torch.sqrt(torch.clamp(re * re + im * im, min=1e-10))
+    return mag, re / mag, im / mag
+
+
+def check_mask_kernel(device, b2=False):
+    """Phase 3 for B1 (five inputs) or B2 (``b2``: six, the mixture as
+    mag/cos/sin): kernel vs plain at the serving views, a contiguous
+    4-wide case and a ragged scalar case; a gradient through the
+    autograd.Function. Returns the largest error at the serving shape."""
     import torch
 
     from lass_torch.ops import masking
 
+    name = "B2 mask kernel" if b2 else "mask kernel"
+    fn = masking.apply_complex_mask if b2 else masking.apply_complex_mask_ri
+    plain = masking.mask_math if b2 else masking.mask_math_from_ri
+
     def compare(args, what):
-        got = masking.apply_complex_mask_ri(*args)
+        got = fn(*args)
         torch.cuda.synchronize()
-        ref = masking.mask_math_from_ri(*args)
+        ref = plain(*args)
         err = max_err(got, ref)
         scale = max(1.0, max(r.abs().max().item() for r in ref))
-        log(f"mask kernel vs plain, {what}: max abs err {err:.3e} "
+        log(f"{name} vs plain, {what}: max abs err {err:.3e} "
             f"(limit {1e-5 * scale:.3e})")
         if not err <= 1e-5 * scale:
-            raise AssertionError(f"mask kernel disagrees at {what}")
+            raise AssertionError(f"{name} disagrees at {what}")
         return err
 
     serving = serving_mask_inputs(device)
+    if b2:
+        serving = (*serving[:3], *mag_cos_sin(*serving[3:]))
     err = compare(serving, f"serving views {tuple(serving[0].shape)}")
     gen = torch.Generator(device=device).manual_seed(1)
+    n_in = 6 if b2 else 5
     for shape in [(3, 37, 257), (4, 101, 512)]:
         args = [torch.randn(*shape, generator=gen, device=device)
-                for _ in range(5)]
+                for _ in range(n_in)]
         compare(args, f"contiguous {shape}")
     args = [torch.randn(2, 5, 64, generator=gen, device=device,
-                        requires_grad=True) for _ in range(5)]
-    r, i = masking.apply_complex_mask_ri(*args)
+                        requires_grad=True) for _ in range(n_in)]
+    r, i = fn(*args)
     grads = torch.autograd.grad((r ** 2 + 0.5 * i).sum(), args)
-    r2, i2 = masking.mask_math_from_ri(*args)
+    r2, i2 = plain(*args)
     grads_ref = torch.autograd.grad((r2 ** 2 + 0.5 * i2).sum(), args)
     gerr = max_err(grads, grads_ref)
-    log(f"mask kernel gradient vs plain: max abs err {gerr:.3e}")
+    log(f"{name} gradient vs plain: max abs err {gerr:.3e}")
     if not gerr <= 1e-5:
-        raise AssertionError("mask kernel gradient disagrees")
+        raise AssertionError(f"{name} gradient disagrees")
     return err
+
+
+def check_timetap(device):
+    """Phase 3 for B7: kernel vs plain at the microbench's shape and at a
+    ragged T and G, each t_tile, activation off and on; within one bf16
+    unit of the largest output. Returns the largest error at the
+    microbench's shape."""
+    import torch
+
+    from lass_torch.microbench_tridiag import SHAPE, inputs
+    from lass_torch.ops import timetap_conv as tt
+
+    worst = 0.0
+    cases = [(SHAPE, 16)] + [((2, 37, 5, 128), t) for t in tt.T_TILES] + [
+        ((1, 70, 3, 64), 32)]
+    for k, (shape, t_tile) in enumerate(cases):
+        x, w3, _ = inputs(shape, seed=k)
+        for act in (False, True):
+            with torch.inference_mode():
+                got = tt.timetap_conv(x, w3, act, t_tile)
+                torch.cuda.synchronize()
+                ref = tt.timetap_conv_plain(x, w3, act)
+            err = max_err((got,), (ref,))
+            limit = BF16_ULP * ref.float().abs().max().item()
+            log(f"timetap_conv vs plain, {shape} t_tile {t_tile} act {act}: "
+                f"max abs err {err:.3e} (limit {limit:.3e})")
+            if not err <= limit:
+                raise AssertionError(f"timetap_conv disagrees at {shape}")
+            if shape == SHAPE:
+                worst = max(worst, err)
+    return worst
 
 
 def kernel_counts():
@@ -550,27 +621,243 @@ def time_captions(enc, n=16, iters=10):
     return statistics.median(times)
 
 
-def time_mask_kernel(iters=10, reps=10):
-    """Kernel and plain version at the serving views, in turns."""
+def time_mask_kernel(b2=False, iters=10, reps=10):
+    """B1 (or B2) and its plain version at the serving views, in turns."""
     import torch
 
     from lass_torch.ops import masking
 
     args = serving_mask_inputs("cuda")
+    if b2:
+        args = (*args[:3], *mag_cos_sin(*args[3:]))
+        fn, plain_fn = masking.apply_complex_mask, masking.mask_math
+    else:
+        fn, plain_fn = masking.apply_complex_mask_ri, masking.mask_math_from_ri
     n, t, f = args[0].shape
-    kernel = lambda: masking.apply_complex_mask_ri(*args)  # noqa: E731
-    plain = lambda: masking.mask_math_from_ri(*args)  # noqa: E731
+    kernel = lambda: fn(*args)  # noqa: E731
+    plain = lambda: plain_fn(*args)  # noqa: E731
     runs = {"plain": [], "kernel": []}
-    for name, fn in (("plain", plain), ("kernel", kernel),
-                     ("kernel", kernel), ("plain", plain)):
-        runs[name].append(cuda_ms(fn, iters, reps=reps))
+    for name, call in (("plain", plain), ("kernel", kernel),
+                       ("kernel", kernel), ("plain", plain)):
+        runs[name].append(cuda_ms(call, iters, reps=reps))
     elements = n * t * f
-    bytes_ms = 28 * elements / HBM_BYTES_PER_S * 1e3
+    bytes_ms = 4 * (len(args) + 2) * elements / HBM_BYTES_PER_S * 1e3
     flops_ms = MASK_FLOPS_PER_ELEMENT * elements / F32_FLOP_PER_S * 1e3
     return {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "shape": [n, t, f]}
+
+
+def time_timetap():
+    """Phase 6 for B7: the microbench (lass_torch.microbench_tridiag), its
+    launches counted; the kernel's time is its best t_tile without the
+    activation, against the plain version and cuDNN's (3, 1) conv, which
+    compute the same function. Returns (summary, microbench rows)."""
+    from lass_torch import microbench_tridiag
+    from lass_torch.ops import timetap_conv as tt
+
+    tt.LAUNCHES = 0
+    rows = microbench_tridiag.run()
+    launches = tt.LAUNCHES
+    for row in rows:
+        log(f"microbench: {json.dumps(row)}")
+    by_op = {}
+    for row in rows:
+        if not row.get("act"):
+            by_op.setdefault(row["op"], []).append(row)
+    best = min(by_op["timetap_conv"], key=lambda r: r["ms"])
+    b, t, g, c = microbench_tridiag.SHAPE
+    m = b * t * g
+    bytes_ms = (2 * 2 * m * c + 2 * 3 * c * c) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * 3 * c * c / BF16_FLOP_PER_S * 1e3
+    return {"ms": best["ms"], "t_tile": best["t_tile"],
+            "plain_ms": by_op["timetap_conv_plain"][0]["ms"],
+            "library_ms": by_op["cudnn_conv_3x1"][0]["ms"],
+            "cudnn_dense_3x3_ms": by_op["cudnn_dense_3x3"][0]["ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "launches": launches}, rows
+
+
+def time_train_steps(sep, batch, steps=5):
+    """Phase 6: train steps/s and peak memory of the bf16 train step at
+    the phase-7 shape (``batch`` clips of 10 s), the served weights, an
+    on-card batch; host clock around synchronised steps after 2 warm-up
+    steps."""
+    import torch
+
+    from lass_torch.data.mixer import SegmentMixer
+    from lass_torch.models.resunet import ResUNet30
+    from lass_torch.tasks.audiosep import AudioSepTask
+    from lass_torch.train.optim import build_optimizer
+
+    model = ResUNet30(compute_dtype=torch.bfloat16).cuda()
+    model.load_state_dict(sep.model.state_dict())
+    optimizer, scheduler = build_optimizer(
+        model.parameters(), "AdamW", 1e-3, "constant_warm_up", 10000,
+        1000000)
+    task = AudioSepTask(model, SegmentMixer(), optimizer, scheduler)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    data = {"waveform": 0.1 * torch.randn(batch, 1, 160000, generator=gen,
+                                          device="cuda"),
+            "condition": torch.randn(batch, 512, generator=gen,
+                                     device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        task.train_step(data, gen)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(steps):
+        metrics = task.train_step(data, gen)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / steps
+    if not torch.isfinite(metrics["train_loss"]):
+        raise AssertionError("the timed train step gave a non-finite loss")
+    return {"steps_per_s": 1 / seconds, "step_ms": seconds * 1e3,
+            "clips_per_s": batch / seconds, "batch": batch,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def run_train_cli(workspace, config, resume, counts_path, max_steps=4):
+    """``python -m lass_torch.train`` in a subprocess on the card; returns
+    its metrics by step, its checkpoint steps and its kernel launches."""
+    cmd = [sys.executable, "-m", "lass_torch.train", "--workspace",
+           workspace, "--config_yaml", config, "--resume_checkpoint_path",
+           resume, "--max_steps", str(max_steps), "--log_every", "1",
+           "--launch_counts", counts_path]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"training failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    stem = os.path.splitext(os.path.basename(config))[0]
+    sub = os.path.join("train", f"{stem},devices=1")
+    with open(os.path.join(workspace, "tf_logs", sub, "metrics.jsonl")) as f:
+        metrics = {r["step"]: r for r in map(json.loads, f)}
+    ckpt_dir = os.path.join(workspace, "checkpoints", sub)
+    steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt_dir)
+                   if n.endswith(".ckpt"))
+    with open(counts_path) as f:
+        counts = json.load(f)
+    return metrics, steps, counts, ckpt_dir, seconds
+
+
+def train(sep, build_dir):
+    """Phase 7: train full-width ResUNet30 (bf16, 10 s segments, the full
+    RoBERTa-base caption encoder) for 4 steps from a synthetic corpus,
+    resume from step 2 to step 4, then serve one 10 s request from the
+    step-4 checkpoint. Returns (results, launches)."""
+    import numpy as np
+
+    from lass_torch.config import load_config
+    from lass_torch.convert.checkpoint_io import load_ss_model
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+
+    datafile = make_synth_corpus(os.path.join(build_dir, "train_corpus"),
+                                 num_clips=4 * TRAIN_BATCH + 8,
+                                 seconds_min=8.0, seconds_max=14.0, seed=0)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        config = write_train_config(
+            os.path.join(root, "config.yaml"), datafile,
+            batch_size=TRAIN_BATCH, segment_seconds=10, num_workers=8,
+            save_step_frequency=2, compute_dtype="bfloat16")
+        first = run_train_cli(os.path.join(root, "run"), config, "",
+                              os.path.join(root, "counts_run.json"))
+        metrics, steps, counts, ckpt_dir, seconds = first
+        losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+        log(f"training, {TRAIN_BATCH} x 10 s per step: steps "
+            f"{sorted(metrics)}, losses {losses}, checkpoints {steps}, "
+            f"launches {counts}, {seconds:.1f} s")
+        if sorted(metrics) != [1, 2, 3, 4] or not np.isfinite(losses).all():
+            raise AssertionError(f"training metrics are wrong: {metrics}")
+        if steps != [1, 2, 4]:
+            raise AssertionError(f"checkpoints at {steps}, not [1, 2, 4]")
+        expect = {name: 0 for name, *_ in KERNELS}
+        expect["apply_complex_mask_ri"] = 4  # one per step's forward
+        if counts != expect:
+            raise AssertionError(f"training launched {counts}, expected "
+                                 f"{expect}")
+        resumed = run_train_cli(os.path.join(root, "resumed"), config,
+                                os.path.join(ckpt_dir, "2.ckpt"),
+                                os.path.join(root, "counts_resumed.json"))
+        r_metrics, r_steps, r_counts, _, r_seconds = resumed
+        rel = {k: abs(r_metrics[k]["train_loss"] - metrics[k]["train_loss"])
+               / abs(metrics[k]["train_loss"]) for k in sorted(r_metrics)}
+        log(f"resumed from step 2: steps {sorted(r_metrics)}, loss rel err "
+            f"against the uninterrupted run {rel} (limit 1e-5), "
+            f"checkpoints {r_steps}, launches {r_counts}, {r_seconds:.1f} s")
+        expect["apply_complex_mask_ri"] = 2
+        if sorted(rel) != [3, 4] or max(rel.values()) > 1e-5:
+            raise AssertionError("the resumed run left the uninterrupted one")
+        if r_counts != expect:
+            raise AssertionError(f"resumed training launched {r_counts}")
+        cfg = load_config(config)
+        trained = load_ss_model(cfg, os.path.join(ckpt_dir, "4.ckpt"),
+                                query_encoder=sep.query_encoder,
+                                device="cuda")
+        reset_kernel_counts()
+        serve(trained, [SERVE_REQUESTS[0]])
+        served = kernel_counts()
+    launches = {name: counts[name] + r_counts[name] + served[name]
+                for name, *_ in KERNELS}
+    return {"losses": losses,
+            "resumed_losses": [r_metrics[k]["train_loss"]
+                               for k in sorted(r_metrics)],
+            "resume_rel_err": max(rel.values()),
+            "cli_steps_per_s": [metrics[k]["steps_per_sec"]
+                                for k in sorted(metrics)],
+            "cli_seconds": [seconds, r_seconds]}, launches
+
+
+def train_step_card_vs_cpu(sep, batch=2, seed=7):
+    """Phase 8: one float32 ``train_step_premixed`` (TF32 off) from the
+    served weights and one batch on the card and on the CPU; the loss
+    within 1e-5 relative, the grads and the updated BN running statistics
+    (each as one vector) within 1e-4 relative."""
+    import numpy as np
+    import torch
+
+    from lass_torch.data.mixer import SegmentMixer
+    from lass_torch.models.resunet import ResUNet30
+    from lass_torch.tasks.audiosep import AudioSepTask
+    from lass_torch.train.optim import build_optimizer
+
+    state = {k: v.detach().cpu() for k, v in sep.model.state_dict().items()}
+    rng = np.random.RandomState(seed)
+    seg = (0.1 * rng.randn(batch, 1, 16000)).astype(np.float32)
+    data = {"segment": seg,
+            "mixture": seg + (0.1 * rng.randn(batch, 1, 16000)).astype(
+                np.float32),
+            "condition": rng.randn(batch, 512).astype(np.float32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = ResUNet30(compute_dtype=torch.float32)
+        model.load_state_dict(state)
+        model.to(dev)
+        optimizer, scheduler = build_optimizer(
+            model.parameters(), "AdamW", 1e-3, "constant_warm_up", 10000,
+            1000000)
+        task = AudioSepTask(model, SegmentMixer(), optimizer, scheduler)
+        metrics = task.train_step_premixed(
+            {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        out[dev] = (float(metrics["train_loss"]), torch.cat(
+            [p.grad.detach().double().cpu().ravel()
+             for p in model.parameters()]), torch.cat(
+            [b.detach().double().cpu().ravel()
+             for n, b in model.named_buffers() if "running" in n]))
+    (loss_c, grads_c, stats_c), (loss, grads, stats) = out["cuda"], out["cpu"]
+    errs = {"loss": abs(loss_c - loss) / abs(loss),
+            "grads": ((grads_c - grads).norm() / grads.norm()).item(),
+            "bn_stats": ((stats_c - stats).norm() / stats.norm()).item()}
+    log(f"float32 train step card vs CPU, B={batch} x 1 s: rel err {errs} "
+        f"(limits loss 1e-5, grads and BN stats 1e-4)")
+    if errs["loss"] > 1e-5 or errs["grads"] > 1e-4 or errs["bn_stats"] > 1e-4:
+        raise AssertionError("the train step disagrees between card and CPU")
+    return errs
 
 
 def main():
@@ -580,7 +867,7 @@ def main():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from lass_torch.ops import _build, masking
+    from lass_torch.ops import _build
 
     # 1. card
     card = card_line()
@@ -599,9 +886,14 @@ def main():
     log(f"kernel build + load: {time.perf_counter() - start:.1f} s "
         f"(nvcc {_build.last_build_seconds:.1f} s)")
 
-    # 3. kernels vs plain
+    # 3. kernels vs plain; B2 has no caller in either package, so this
+    # phase is its path: its launches are counted here
     mask_err = check_mask_kernel("cuda")
+    reset_kernel_counts()
+    b2_err = check_mask_kernel("cuda", b2=True)
+    b2_launches = kernel_counts()["apply_complex_mask"]
     fused_err = check_fused_kernels("cuda")
+    timetap_err = check_timetap("cuda")
     torch.cuda.empty_cache()
 
     # 4. serve: the default configuration, then A and B
@@ -627,7 +919,7 @@ def main():
     RESULTS.update(request_ms=[x * 1e3 for x in request_s],
                    fused_vs_default_rel_err={c: e for c, (_, e) in
                                              fused.items()},
-                   launches_phase4=launches)
+                   launches_phase4=dict(launches))
 
     # 5. card vs CPU
     RESULTS["f32_card_vs_cpu_rel_err"] = card_vs_cpu(sep)
@@ -649,34 +941,73 @@ def main():
         torch.cuda.empty_cache()
     cap_ms = time_captions(sep.query_encoder)
     log(f"caption encoding, 16 captions: {cap_ms:.2f} ms median")
-    mask = time_mask_kernel()
-    log(f"mask kernel at {mask['shape']}: {mask['ms'] * 1e3:.1f} us, plain "
-        f"{mask['plain_ms'] * 1e3:.1f} us, bound {mask['bound_ms'] * 1e3:.1f} "
-        f"us ({mask['bound_by']})")
+    masks = {}
+    for name, b2 in (("apply_complex_mask_ri", False),
+                     ("apply_complex_mask", True)):
+        masks[name] = time_mask_kernel(b2)
+        m = masks[name]
+        log(f"{name} at {m['shape']}: {m['ms'] * 1e3:.1f} us, plain "
+            f"{m['plain_ms'] * 1e3:.1f} us, bound {m['bound_ms'] * 1e3:.1f} "
+            f"us ({m['bound_by']})")
     rows, totals = time_fused_kernels()
-    RESULTS.update(forward=forward, caption_ms=cap_ms, mask_kernel=mask,
-                   fused_kernel_rows=rows, fused_kernel_totals=totals)
+    timetap, timetap_rows = time_timetap()
+    log(f"timetap_conv at its best t_tile {timetap['t_tile']}: "
+        f"{timetap['ms']:.3f} ms, plain {timetap['plain_ms']:.3f} ms, "
+        f"cuDNN (3, 1) conv {timetap['library_ms']:.3f} ms, bound "
+        f"{timetap['bound_ms']:.3f} ms ({timetap['bound_by']}); "
+        f"{timetap['launches']} launches")
+    torch.cuda.empty_cache()
+    train_time = time_train_steps(sep, TRAIN_BATCH)
+    log(f"train step bf16, {TRAIN_BATCH} x 10 s: {train_time['step_ms']:.1f}"
+        f" ms, {train_time['steps_per_s']:.2f} steps/s, "
+        f"{train_time['clips_per_s']:.1f} clips/s, peak memory "
+        f"{train_time['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    RESULTS.update(forward=forward, caption_ms=cap_ms, mask_kernels=masks,
+                   fused_kernel_rows=rows, fused_kernel_totals=totals,
+                   timetap=timetap, microbench_rows=timetap_rows,
+                   train_step=train_time)
 
-    kernels = [{
-        "name": "apply_complex_mask_ri", "route": "cuda",
-        "source": KERNELS[0][3], "replaces": KERNELS[0][4],
-        "launches": launches["apply_complex_mask_ri"],
-        "max_abs_err": mask_err, "ms": mask["ms"],
-        "plain_ms": mask["plain_ms"], "bound_ms": mask["bound_ms"],
-        "bound_by": mask["bound_by"], "library_ms": None}]
-    # the fused kernels: times summed over their launches in one forward
-    for name, _, _, source, replaces in KERNELS[1:]:
-        tot = totals[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": fused_err[name], "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-                         else "operations"),
-            "library_ms": None})
+    # 7. training through the CLI, resume, and serving its checkpoint
+    training, train_launches = train(sep, build_dir)
+    for name, n in train_launches.items():
+        launches[name] += n
+    RESULTS.update(training=training, launches_phase7=train_launches)
+
+    # 8. the float32 train step, card vs CPU
+    RESULTS["train_step_card_vs_cpu_rel_err"] = train_step_card_vs_cpu(sep)
+
+    kernels = []
+    for name, _, _, source, replaces in KERNELS:
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces}
+        if name in masks:
+            m = masks[name]
+            row.update(launches=b2_launches if name == "apply_complex_mask"
+                       else launches[name],
+                       max_abs_err=b2_err if name == "apply_complex_mask"
+                       else mask_err, ms=m["ms"], plain_ms=m["plain_ms"],
+                       bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                       library_ms=None)
+        elif name == "timetap_conv":
+            row.update(launches=timetap["launches"], max_abs_err=timetap_err,
+                       ms=timetap["ms"], plain_ms=timetap["plain_ms"],
+                       bound_ms=timetap["bound_ms"],
+                       bound_by=timetap["bound_by"],
+                       library_ms=timetap["library_ms"])
+        else:  # the fused kernels: times summed over their launches in
+            # one forward
+            tot = totals[name]
+            row.update(launches=launches[name], max_abs_err=fused_err[name],
+                       ms=tot["ms"], plain_ms=tot["plain_ms"],
+                       bound_ms=tot["bound_ms"],
+                       bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                                 else "operations"),
+                       library_ms=None)
+        kernels.append(row)
     if any(k["launches"] <= 0 for k in kernels):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+        raise AssertionError(f"a kernel was not launched: " + ", ".join(
+            f"{k['name']} {k['launches']}" for k in kernels))
     RESULTS["kernels"] = kernels
     RESULTS["card"] = card_line()
     details = os.path.join(REPO, "chiprun_out", "chip_smoke.json")

@@ -67,15 +67,24 @@ def _window_sumsquare(cfg: STFTConfig, num_frames: int) -> np.ndarray:
     return np.maximum(env, 1e-11).astype(np.float32)
 
 
+# The cached device constants are made outside inference mode whatever
+# the caller's mode: a tensor made under torch.inference_mode() cannot be
+# saved for backward, and the first caller may be a serving forward while
+# a later one trains.
+
+
 @functools.lru_cache(maxsize=16)
 def _window_on(cfg: STFTConfig, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_padded_window(cfg)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(_padded_window(cfg)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
 def _envelope_on(cfg: STFTConfig, num_frames: int, device: torch.device
                  ) -> torch.Tensor:
-    return torch.from_numpy(_window_sumsquare(cfg, num_frames)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(_window_sumsquare(cfg, num_frames)).to(
+            device)
 
 
 def stft(x: torch.Tensor, cfg: STFTConfig = STFTConfig()

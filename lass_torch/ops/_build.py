@@ -119,6 +119,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.lass_apply_complex_mask_ri
     fn.argtypes = ([ptr, i64, i64] * 5 + [ptr, ptr, i64, i64, i64, i64, ptr])
     fn.restype = ctypes.c_int
+    fn = lib.lass_apply_complex_mask
+    fn.argtypes = ([ptr, i64, i64] * 6 + [ptr, ptr, i64, i64, i64, i64, ptr])
+    fn.restype = ctypes.c_int
     fn = lib.lass_act_conv3x3
     fn.argtypes = ([ptr, i64, i64, i64, i64] * 2
                    + [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64,
@@ -135,4 +138,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ptr, i64, i64, i64, i64, ptr, ptr, i64,
                     ptr, i64, i64, ptr, i64, i64, ptr, ptr, i64, i64, i64,
                     ptr])
+    fn.restype = ctypes.c_int
+    fn = lib.lass_timetap_conv
+    fn.argtypes = [ptr] * 3 + [i64] * 6 + [ptr]
     fn.restype = ctypes.c_int

@@ -1,11 +1,15 @@
-"""K=3 complex-mask apply + phase rotation: CUDA kernel and plain version.
+"""K=3 complex-mask apply + phase rotation: CUDA kernels and plain versions.
 
 ``apply_complex_mask_ri`` is the port of the Pallas TPU kernel
-``lass_tpu/ops/pallas_masking.py::apply_complex_mask_ri``. On a CUDA
-tensor it launches ``lass_torch/csrc/masking.cu`` (built at first use by
-``lass_torch/ops/_build.py``) or raises; on a CPU tensor it runs the plain
-PyTorch version ``mask_math_from_ri`` below. The backward recomputes
-through the plain formula with autograd, as the JAX custom_vjp does.
+``lass_tpu/ops/pallas_masking.py::apply_complex_mask_ri`` (B1): the mixture
+enters as its raw spectrum (re, im). ``apply_complex_mask`` is the port of
+``apply_complex_mask`` there (B2): the same chain with the mixture's mag,
+cos and sin precomputed. On CUDA tensors both launch
+``lass_torch/csrc/masking.cu`` (built at first use by
+``lass_torch/ops/_build.py``) or raise; on CPU tensors they run the plain
+PyTorch versions ``mask_math_from_ri`` and ``mask_math`` below. The
+backward recomputes through the plain formula with autograd, as the JAX
+custom_vjp does.
 
 ``apply_head_mask`` (below) fuses the 1x1 ``after_conv`` into the same
 chain: the port of ``apply_head_mask_folded``.
@@ -18,20 +22,18 @@ import torch
 
 from lass_torch.ops import _common
 
-# number of kernel launches since the last reset (the CPU path never adds)
+# number of kernel launches since the last reset (the CPU path never adds):
+# B1 (raw spectrum) and B2 (mag/cos/sin)
 LAUNCHES = 0
+B2_LAUNCHES = 0
 
 
-def mask_math_from_ri(l_mag: torch.Tensor, l_real: torch.Tensor,
-                      l_imag: torch.Tensor, real_in: torch.Tensor,
-                      imag_in: torch.Tensor, eps: float = 1e-10
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: mixture mag/cos/sin from the raw spectrum (power
-    clamped at eps before the sqrt), sigmoid magnitude mask, tanh phase
-    mask normalised by max(|.|, 1e-10), rotation, relu magnitude."""
-    mag = torch.sqrt(torch.clamp(real_in * real_in + imag_in * imag_in,
-                                 min=eps))
-    cos_in, sin_in = real_in / mag, imag_in / mag
+def mask_math(l_mag: torch.Tensor, l_real: torch.Tensor,
+              l_imag: torch.Tensor, mag: torch.Tensor, cos_in: torch.Tensor,
+              sin_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B2 (``_mask_math``): sigmoid magnitude mask, tanh
+    phase mask normalised by max(|.|, 1e-10), rotation of the mixture's
+    phase (cos, sin), relu magnitude."""
     mask_mag = torch.sigmoid(l_mag)
     mr, mi = torch.tanh(l_real), torch.tanh(l_imag)
     denom = torch.clamp(torch.sqrt(mr * mr + mi * mi), min=1e-10)
@@ -40,6 +42,18 @@ def mask_math_from_ri(l_mag: torch.Tensor, l_real: torch.Tensor,
     out_sin = sin_in * mask_cos + cos_in * mask_sin
     out_mag = torch.relu(mag * mask_mag)
     return out_mag * out_cos, out_mag * out_sin
+
+
+def mask_math_from_ri(l_mag: torch.Tensor, l_real: torch.Tensor,
+                      l_imag: torch.Tensor, real_in: torch.Tensor,
+                      imag_in: torch.Tensor, eps: float = 1e-10
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B1: the mixture's mag/cos/sin from the raw spectrum
+    (power clamped at eps before the sqrt), then ``mask_math``."""
+    mag = torch.sqrt(torch.clamp(real_in * real_in + imag_in * imag_in,
+                                 min=eps))
+    return mask_math(l_mag, l_real, l_imag, mag, real_in / mag,
+                     imag_in / mag)
 
 
 def _check(args) -> None:
@@ -64,10 +78,13 @@ def _vec4_ok(args, f: int) -> bool:
 
 
 def _launch(args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Five inputs launch B1, six B2."""
     from lass_torch.ops._build import load_library
 
-    global LAUNCHES
+    global LAUNCHES, B2_LAUNCHES
     lib = load_library()
+    fn = (lib.lass_apply_complex_mask_ri if len(args) == 5
+          else lib.lass_apply_complex_mask)
     n, t, f = args[0].shape
     out_re = torch.empty((n, t, f), dtype=torch.float32,
                          device=args[0].device)
@@ -75,48 +92,65 @@ def _launch(args) -> Tuple[torch.Tensor, torch.Tensor]:
     flat = []
     for a in args:
         flat += [a.data_ptr(), a.stride(0), a.stride(1)]
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lass_apply_complex_mask_ri(
-            *flat, out_re.data_ptr(), out_im.data_ptr(), n, t, f,
-            int(_vec4_ok(args, f)), stream)
-    if err != 0:
-        raise RuntimeError(f"masking kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _common.launch(fn, args[0].device, "masking", *flat, out_re.data_ptr(),
+                   out_im.data_ptr(), n, t, f, int(_vec4_ok(args, f)))
+    if len(args) == 5:
+        LAUNCHES += 1
+    else:
+        B2_LAUNCHES += 1
     return out_re, out_im
 
 
-class _MaskRI(torch.autograd.Function):
+class _Mask(torch.autograd.Function):
+    """Kernel forward; backward recomputes through the plain formula."""
+
     @staticmethod
-    def forward(ctx, l_mag, l_real, l_imag, real_in, imag_in):
-        ctx.save_for_backward(l_mag, l_real, l_imag, real_in, imag_in)
-        return _launch((l_mag, l_real, l_imag, real_in, imag_in))
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _launch(args)
 
     @staticmethod
     def backward(ctx, g_re, g_im):
         inputs = [a.detach().requires_grad_(True) for a in ctx.saved_tensors]
+        plain = mask_math_from_ri if len(inputs) == 5 else mask_math
         with torch.enable_grad():
-            out = mask_math_from_ri(*inputs)
+            out = plain(*inputs)
         return torch.autograd.grad(out, inputs, (g_re, g_im),
                                    allow_unused=True)
+
+
+_MaskRI = _Mask  # B1's name for it, which callers and tests use
+
+
+def _apply(args, plain) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(args)
+    if _common.device_kind(args[0], "masking") == "cpu":
+        return plain(*args)
+    return _Mask.apply(*args)
 
 
 def apply_complex_mask_ri(l_mag: torch.Tensor, l_real: torch.Tensor,
                           l_imag: torch.Tensor, real_in: torch.Tensor,
                           imag_in: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, T, F) x5 float32 -> (real, imag) each contiguous (N, T, F).
+    """B1: (N, T, F) x5 float32 -> (real, imag) each contiguous (N, T, F).
 
     Each input may be a strided view (own n and t strides, unit F stride).
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    args = (l_mag, l_real, l_imag, real_in, imag_in)
-    _check(args)
-    if l_mag.device.type == "cpu":
-        return mask_math_from_ri(*args)
-    if l_mag.device.type != "cuda":
-        raise ValueError(f"no masking kernel for device {l_mag.device}")
-    return _MaskRI.apply(*args)
+    return _apply((l_mag, l_real, l_imag, real_in, imag_in),
+                  mask_math_from_ri)
+
+
+def apply_complex_mask(l_mag: torch.Tensor, l_real: torch.Tensor,
+                       l_imag: torch.Tensor, mag: torch.Tensor,
+                       cos_in: torch.Tensor, sin_in: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2: (N, T, F) x6 float32 (logits, then the mixture's mag, cos, sin)
+    -> (real, imag) each contiguous (N, T, F); views as for B1. CPU
+    tensors take the plain version ``mask_math``; CUDA tensors launch the
+    kernel's six-input mode. Differentiable (recompute)."""
+    return _apply((l_mag, l_real, l_imag, mag, cos_in, sin_in), mask_math)
 
 
 # ---------------------------------------------------------------------------

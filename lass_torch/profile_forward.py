@@ -1,7 +1,8 @@
-"""Where the separation forward's device time goes, by kernel family.
+"""Where the separation forward's (or the train step's) device time goes,
+by kernel family.
 
     python -m lass_torch.profile_forward [--config default|A|B] [--batch 16]
-        [--seconds 10] [--iters 3]
+        [--seconds 10] [--iters 3] [--train]
 
 Runs the full-width ResUNet30 forward (config/audiosep_base.yaml, random
 weights) in the chosen serving configuration (``CONFIGS`` in
@@ -10,9 +11,13 @@ the GPU under ``torch.profiler`` after warm-up, then prints the device time
 per forward by kernel family (the port's own kernels, convolutions, matrix
 products, FFTs, overlap-add, elementwise, other), the top kernels, and the
 device's busy share of the profiled window, with the card's name and
-power limit. Needs a CUDA device.
+power limit. ``--train`` profiles the bf16 train step instead
+(``AudioSepTask.train_step``: mix, forward in train mode, backward, AMSGrad;
+the default configuration, as the fused switches are eval-only), per step.
+Needs a CUDA device.
 """
 import argparse
+import contextlib
 import collections
 import json
 import os
@@ -26,6 +31,9 @@ FAMILIES = [  # first match wins; matched against the lower-cased name
     ("fused act+convT kernel", ("act_convt",)),
     ("fused head+mask kernel", ("head_mask",)),
     ("fft", ("fft",)),
+    ("optimizer (AdamW)", ("multi_tensor", "foreach", "adam")),
+    ("batch norm (train)", ("batch_norm", "batchnorm", "welford", "bn_fw_",
+                            "bn_bw_")),
     ("overlap-add (fold)", ("col2im", "im2col")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "nchwtonhwc",
               "nhwctonchw", "dgrad", "wgrad")),
@@ -50,7 +58,12 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--seconds", type=float, default=10.0)
     parser.add_argument("--iters", type=int, default=3)
+    parser.add_argument("--train", action="store_true",
+                        help="profile train steps (default config only)")
     args = parser.parse_args(argv)
+    if args.train and args.config != "default":
+        parser.error("--train runs the default configuration: the fused "
+                     "switches are eval-only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -64,16 +77,35 @@ def main(argv=None):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(repo, "config", "audiosep_base.yaml"))
     torch.manual_seed(0)
-    model = build_model(cfg, **CONFIGS[args.config]).cuda().eval()
+    model = build_model(cfg, **CONFIGS[args.config]).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = {"mixture": 0.1 * torch.randn(
-                 args.batch, 1, int(args.seconds * 16000), generator=gen,
-                 device="cuda"),
-             "condition": torch.randn(args.batch, 512, generator=gen,
-                                      device="cuda")}
-    with torch.inference_mode():
-        for _ in range(3):
+    wave = 0.1 * torch.randn(args.batch, 1, int(args.seconds * 16000),
+                             generator=gen, device="cuda")
+    cond = torch.randn(args.batch, 512, generator=gen, device="cuda")
+    if args.train:
+        from lass_torch.data.mixer import SegmentMixer
+        from lass_torch.tasks.audiosep import AudioSepTask
+        from lass_torch.train.optim import build_optimizer
+
+        opt = cfg.train.optimizer
+        task = AudioSepTask(model, SegmentMixer(), *build_optimizer(
+            model.parameters(), opt.optimizer_type, opt.learning_rate,
+            opt.lr_lambda_type, opt.warm_up_steps, opt.reduce_lr_steps))
+        data = {"waveform": wave, "condition": cond}
+        mode = contextlib.nullcontext()
+
+        def run():
+            task.train_step(data, gen)
+    else:
+        model.eval()
+        batch = {"mixture": wave, "condition": cond}
+        mode = torch.inference_mode()
+
+        def run():
             model(batch)
+    with mode:
+        for _ in range(3):
+            run()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -81,7 +113,7 @@ def main(argv=None):
                                  ProfilerActivity.CUDA]) as prof:
             start.record()
             for _ in range(args.iters):
-                model(batch)
+                run()
             end.record()
             torch.cuda.synchronize()
     window_ms = start.elapsed_time(end)
@@ -91,7 +123,7 @@ def main(argv=None):
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
         if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            per_kernel[evt.key] += us / 1e3 / args.iters  # ms per forward
+            per_kernel[evt.key] += us / 1e3 / args.iters  # ms per call
     by_family = collections.Counter()
     for name, ms in per_kernel.items():
         by_family[family(name)] += ms
@@ -104,10 +136,11 @@ def main(argv=None):
     result = {
         "card": card,
         "config": args.config,
+        "mode": "train step" if args.train else "forward",
         "shape": [args.batch, 1, int(args.seconds * 16000)],
         "dtype": cfg.model.compute_dtype,
-        "forward_ms_cuda_events": fwd_ms,
-        "device_busy_ms_per_forward": busy,
+        "ms_per_call_cuda_events": fwd_ms,
+        "device_busy_ms_per_call": busy,
         "device_idle_share": (1 - busy / fwd_ms) if busy else None,
         "by_family_ms": dict(by_family.most_common()),
         "top_kernels_ms": dict(per_kernel.most_common(15)),
@@ -116,7 +149,7 @@ def main(argv=None):
         print("profile_forward: the profiler recorded no device time",
               file=sys.stderr)
     print(f"card: {card}")
-    print(f"forward {result['shape']} {result['dtype']}, config "
+    print(f"{result['mode']} {result['shape']} {result['dtype']}, config "
           f"{args.config}: {fwd_ms:.2f} ms "
           f"(CUDA events), device busy {busy:.2f} ms")
     for fam, ms in by_family.most_common():

@@ -195,3 +195,85 @@ def test_head_mask_gradient_on_card(rng):
                     grads(masking.head_mask_plain)):
         assert (g.float() - r.float()).abs().max().item() <= 2e-4 * max(
             1.0, r.float().abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# B2, the six-input mode of the mask kernel (float32: 1e-5 of max(1, max
+# |plain|), as B1), and B7, the time-tap conv (bf16 output: one bf16 unit
+# of the largest output, as the fused convs).
+# ---------------------------------------------------------------------------
+
+
+def _mag_cos_sin(re, im):
+    mag = torch.sqrt(torch.clamp(re * re + im * im, min=1e-10))
+    return mag, re / mag, im / mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,strided", [((3, 37, 257), False),
+                                           ((4, 101, 512), True)])
+def test_mask_b2_matches_plain_on_card(rng, shape, strided):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    n, t, f = shape
+    if strided:  # logits as channel slices, the mixture cropped 513 -> 512
+        logits = _card(rng, n, 3, t + 5, f)[:, :, :t]
+        args = [logits[:, k] for k in range(3)] + [
+            a[..., :f] for a in _mag_cos_sin(_card(rng, n, t, f + 1),
+                                             _card(rng, n, t, f + 1))]
+    else:
+        args = [_card(rng, n, t, f) for _ in range(3)] + list(
+            _mag_cos_sin(_card(rng, n, t, f), _card(rng, n, t, f)))
+    before = masking.B2_LAUNCHES
+    got = masking.apply_complex_mask(*args)
+    torch.cuda.synchronize()
+    assert masking.B2_LAUNCHES == before + 1
+    ref = masking.mask_math(*args)
+    for g, r in zip(got, ref):
+        assert g.is_contiguous()
+        assert (g - r).abs().max().item() <= 1e-5 * max(
+            1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_mask_b2_gradient_on_card(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = [_card(rng, 2, 5, 64) for _ in range(3)] + list(
+        _mag_cos_sin(_card(rng, 2, 5, 64), _card(rng, 2, 5, 64)))
+    args = [a.detach().requires_grad_(True) for a in args]
+
+    def grads(fn):
+        r, i = fn(*args)
+        return torch.autograd.grad((r ** 2 + 0.5 * i).sum(), args)
+
+    for g, r in zip(grads(masking.apply_complex_mask),
+                    grads(masking.mask_math)):
+        assert (g - r).abs().max().item() <= 1e-5 * max(
+            1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t_tile", [((2, 37, 5, 128), 16),
+                                          ((1, 70, 3, 128), 32),
+                                          ((2, 9, 7, 64), 64),
+                                          ((1, 33, 4, 32), 16)])
+@pytest.mark.parametrize("act", [False, True])
+def test_timetap_conv_matches_plain_on_card(rng, shape, t_tile, act):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from lass_torch.ops import timetap_conv as tt_mod
+
+    _strict_float32()
+    c = shape[3]
+    x = _card(rng, *shape).to(torch.bfloat16)
+    w3 = _card(rng, 3 * c, c, scale=(3 * c) ** -0.5).to(torch.bfloat16)
+    before = tt_mod.LAUNCHES
+    with torch.no_grad():
+        got = tt_mod.timetap_conv(x, w3, act, t_tile)
+        torch.cuda.synchronize()
+        ref = tt_mod.timetap_conv_plain(x, w3, act)
+    assert tt_mod.LAUNCHES == before + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= BF16_ULP * scale
