@@ -10,11 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from lass_torch/csrc (one nvcc per source, in
    parallel, at first use);
 3. each kernel against its plain PyTorch version at every distinct shape
-   the serving forward gives it (B=16 clips of 10 s) and at ragged shapes,
-   plus gradient cases for the mask kernels; the six-input mask mode (B2,
-   no caller in either package: this phase is its path) at the serving
-   shape; the time-tap conv (B7) at its microbench's shape (16, 1024, 128,
-   128) and ragged ones, activation off and on;
+   the serving forward gives it (B=16 clips of 10 s) and at ragged shapes
+   (B3 also at the edges of its persistent schedule), plus gradient cases
+   for the mask kernels; the six-input mask mode (B2, no caller in either
+   package: this phase is its path) at the serving shape; the time-tap
+   conv (B7) at its microbench's shape (16, 1024, 128, 128) and ragged
+   ones, activation off and on;
 4. serve: ``load_ss_model`` on a random-weight full-width ResUNet30
    (config/audiosep_base.yaml, bf16) with the full RoBERTa-base caption
    encoder, four requests of 10 s, 4.5 s and 1 s, one caption repeated so
@@ -371,11 +372,47 @@ def check_case(case):
     return err
 
 
+# B3 at the edges of its persistent schedule (b, source channels, C_out,
+# T, F): T and F off the 64-frequency strip, one batch (fewer columns than
+# SMs), T = 1 and 2 (every halo row is padding), sources split 8 + 24, the
+# widest input (64 + 64) -> 64, C_in 48 (a chunk count that does not
+# divide a warpgroup)
+B3_EDGES = [(2, (32,), 32, 70, 130), (1, (32,), 64, 5, 20),
+            (1, (32,), 32, 1, 64), (2, (16, 16), 32, 2, 65),
+            (2, (8, 24), 32, 19, 71), (2, (64, 64), 64, 11, 131),
+            (1, (64, 64), 64, 1, 7), (2, (48,), 64, 6, 33)]
+
+
+def b3_edge_cases(device, seed=2):
+    import torch
+
+    from lass_torch.ops import act_conv
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cases = []
+    for b, chans, cout, t, f in B3_EDGES:
+        cin = sum(chans)
+        srcs = [torch.randn(b, c, t, f, generator=gen, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            for c in chans]
+        cases.append(dict(
+            kernel="fused_act_conv3x3", ulps=1,
+            label=f"schedule edge {'+'.join(map(str, chans))}->{cout} at "
+                  f"{b}x{t}x{f}",
+            fn=act_conv.fused_act_conv3x3, plain=act_conv.act_conv3x3_plain,
+            args=(srcs, (9 * cin) ** -0.5 * torch.randn(
+                cout, cin, 3, 3, generator=gen, device=device),
+                1 + 0.1 * torch.randn(b, cin, generator=gen, device=device),
+                0.1 * torch.randn(b, cin, generator=gen, device=device))))
+    return cases
+
+
 def check_fused_kernels(device):
     """Phase 3 for the fused kernels: every serving shape, the same set at
     ragged sizes (b=2, level 1 of 74 x 100, two output channels for the
-    head), and a head gradient. Returns the largest error per kernel at
-    the serving shapes."""
+    head), B3 at the edges of its schedule (B3_EDGES), and a head
+    gradient. Returns the largest error per kernel at the serving
+    shapes."""
     import torch
 
     from lass_torch.ops import masking
@@ -385,7 +422,7 @@ def check_fused_kernels(device):
         err = check_case(case)
         worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), err)
     for case in fused_cases(device, b=2, l1=(74, 100), t_out=70,
-                            head_channels=2, seed=1):
+                            head_channels=2, seed=1) + b3_edge_cases(device):
         check_case(case)
     gen = torch.Generator(device=device).manual_seed(3)
     h = torch.randn(1, 32, 5, 24, generator=gen, device=device).to(
@@ -585,8 +622,10 @@ def time_fused_kernels(iters=5, reps=10):
             "ops_ms": 0.0})
         for key, val in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
                          ("bound_ms", row["bound_ms"]),
-                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-            tot[key] += case["n"] * val
+                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                         ("cudnn_conv_ms", cudnn_ms)):
+            if val is not None:
+                tot[key] = tot.get(key, 0.0) + case["n"] * val
         del case, args
     return rows, totals
 
@@ -950,6 +989,10 @@ def main():
             f"{m['plain_ms'] * 1e3:.1f} us, bound {m['bound_ms'] * 1e3:.1f} "
             f"us ({m['bound_by']})")
     rows, totals = time_fused_kernels()
+    b3 = totals["fused_act_conv3x3"]
+    log(f"fused_act_conv3x3 per config-A forward (8 launches): "
+        f"{b3['ms']:.3f} ms, bound {b3['bound_ms']:.3f} ms, cuDNN's bare "
+        f"convs at the same shapes {b3['cudnn_conv_ms']:.3f} ms")
     timetap, timetap_rows = time_timetap()
     log(f"timetap_conv at its best t_tile {timetap['t_tile']}: "
         f"{timetap['ms']:.3f} ms, plain {timetap['plain_ms']:.3f} ms, "

@@ -1,6 +1,7 @@
 // Small helpers shared by the tensor-core conv kernels (act_conv.cu,
-// convblock.cu, convt.cu, head_mask.cu): 16-byte bf16 vector moves, the
-// leaky ReLU, and the dynamic shared memory opt-in.
+// convblock.cu, convt.cu, head_mask.cu, timetap_conv.cu): 16-byte bf16
+// vector moves, the leaky ReLU, the dynamic shared memory opt-in, and the
+// size of a persistent grid.
 #pragma once
 
 #include <cstdint>
@@ -105,5 +106,23 @@ inline int allow_smem(Kernel kernel, int64_t bytes) {
 }
 
 constexpr int64_t kMaxSmem = 232448;  // bytes a block may use on an H100
+
+// How many blocks of `kernel` (`threads` threads, `bytes` of dynamic shared
+// memory) the current device holds at once: the size of a persistent grid.
+// Returns the CUDA error code; *blocks is 0 if none fits.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, int64_t bytes,
+                           int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, static_cast<size_t>(bytes));
+  *blocks = sms * per_sm;
+  if (err == cudaSuccess && *blocks == 0) err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
 
 }  // namespace lass

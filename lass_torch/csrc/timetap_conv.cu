@@ -1,4 +1,4 @@
-// Time-tap convolution on bf16 tensor cores (the dw = 0 column of a 3x3
+// Time-tap convolution on Hopper tensor cores (the dw = 0 column of a 3x3
 // conv): for x of (B, T, G, C) and w3 of (3C, C),
 //
 //   y[b,t,g,:] = sum_{dt=0..2} act(x[b, t+dt-1, g, :]) @ w3[dt*C:(dt+1)*C, :]
@@ -17,176 +17,235 @@
 // time conv, on every tile.
 //
 // What bounds it on an H100: at the microbench's shape (16, 1024, 128,
-// 128) memory, barely: 1.07 GB moved (320 us at 3.35 TB/s) against 206
-// GFLOP (208 us at 989 TFLOP/s), 192 flop per byte.
+// 128) memory: 1.07 GB moved (320 us at 3.35 TB/s) against 206 GFLOP
+// (208 us at 989 TFLOP/s), 192 flop per byte. The design keeps the bytes
+// moved at that minimum and the loads in flight while the tensor cores
+// run: each input row is read from device memory once and the weights
+// once per block.
 //
-// Design (simple first, like act_conv.cu): one block of 8 warps computes
-// a 128-row output tile, t_tile time rows x (128 / t_tile) positions of
-// G, for all C output channels. It loads the (t_tile + 2)-row halo of x
-// once from device memory, applies the activation in registers and
-// stores it to shared memory as bf16, rows ordered (time, g), so the A
-// operand of tap dt is the same tile shifted by dt * (128 / t_tile) rows.
-// For each tap it stages that tap's (C, C) weights in shared memory and
-// runs 16x16x16 bf16 WMMA products with float32 accumulators; the eight
-// warps split the tile 4 (rows) x 2 (channels). The accumulators go
-// through shared memory to 16-byte bf16 stores. Two blocks per SM; no
-// TMA, wgmma or pipelining yet. t_tile trades the halo's extra reads
-// (2 / t_tile) against the tile's extent along G.
+// Design (persistent, after the TPU kernel's resident weights and
+// double-buffered halo DMA):
+// - A block of two warpgroups holds all of w3 in shared memory, loaded
+//   once (96 KB at C = 128), in wgmma's K-major B layout (the wrapper
+//   packs it, sm90_pipe.cuh). The grid is as many blocks as fit on the
+//   SMs at once.
+// - Each warpgroup walks its own share of the work: a column is one batch
+//   and a block of 64 g positions, a unit is t_tile time rows of a column,
+//   and walker w of W takes units [w U / W, (w + 1) U / W), so every
+//   warpgroup gets the same number of units to within one. It walks them
+//   down T. Within a column it keeps rows t - 1 and t of the previous
+//   step, so each input row is read from device memory once; only where
+//   its range starts a column (at most twice per walker) does it read the
+//   one halo row again. t_tile is thus the granularity of the split, no
+//   longer a tile: the halo is re-read 2 / (rows per walker), not
+//   2 / t_tile, and t_tile trades nothing but the balance.
+// - A ring of four row slots per warpgroup (64 x C bf16, 16-byte chunks
+//   XOR-swizzled for conflict-free ldmatrix and stmatrix): rows t - 1, t,
+//   t + 1 are read by step t's products while row t + 2 arrives by
+//   cp.async; row t + 3 is issued into row t - 1's slot once the step is
+//   done with it.
+// - The products are wgmma m64nCk16 with A from registers (ldmatrix at the
+//   tap's row, the activation applied to the fragment in registers: an
+//   element is activated once per tap, which costs less than a pass over
+//   shared memory) and B from the resident weights, double-buffered by tap.
+// - Epilogue: the float32 accumulators go to bf16 in row t - 1's slot by
+//   stmatrix, then to device memory in 16-byte stores, each position's C
+//   channels contiguous (each thread's 4-byte pairs straight from the
+//   fragments write half-sectors, and were slower).
+//
+// What bounds it now (chip_smoke.py and the microbench on an H100, PERF.md
+// PR 4): it runs at about three quarters of the bytes bound, level with
+// cuDNN's (3, 1) conv. The resident weights leave shared memory for two
+// warpgroups of four slots per SM, so each warpgroup keeps one or two rows
+// in flight, its steps' serial phases (wait, products, epilogue) overlap
+// only with the other's, and ldmatrix and wgmma's B reads share the SM's
+// shared-memory bandwidth. Holding the weights in registers instead (the
+// product transposed, activations as wgmma's B through a 128-byte-swizzled
+// descriptor, a six-row ring) measured slower: its two warpgroups share
+// each row and run in lockstep.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include "sm90_pipe.cuh"
 #include "tile_util.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kM = 128;      // output rows (time x g positions) per block
-constexpr int kWarps = 8;    // 4 along the rows x 2 along the channels
-constexpr int kWarpRows = kM / 4;
-constexpr int kMT = kWarpRows / 16;  // m-tiles per warp
+constexpr int kRows = 64;   // g positions of a warpgroup's tile (wgmma M)
+constexpr int kWG = 2;      // warpgroups per block, sharing the weights
+constexpr int kRing = 4;    // row slots per warpgroup
 // the leaky slope 0.01 rounded to bf16, as the TPU kernel's 0.01 * x
 constexpr float kNegSlopeBf16 = 0.010009765625f;
 
 struct TimeTapArgs {
-  const bf16* x;   // (B, T, G, C) contiguous
-  const bf16* w;   // (3C, C) contiguous
-  bf16* out;       // (B, T, G, C) contiguous
-  int t, g, tt, fuse_act;
+  const bf16* x;    // (B, T, G, C) contiguous
+  const bf16* w;    // packed (3, C / 16, C / 8, 2, 8, 8), see sm90_pipe.cuh
+  bf16* out;        // (B, T, G, C) contiguous
+  int t, g, fuse_act;
+  int gblocks;      // ceil(G / 64): columns per batch
+  int unit_rows;    // t_tile
+  int col_units;    // ceil(T / t_tile)
+  int64_t units;    // B * gblocks * col_units
 };
 
+// the weights, shared by the block's warpgroups, and each one's ring
 template <int C>
-struct Layout {
-  static constexpr int ldx = C + 16;  // rows 32-byte aligned for WMMA
-  static constexpr int ldw = C + 16;
-  static constexpr int ldc = C + 8;
-  static int64_t smem_bytes(int tt) {
-    const int64_t operands =
-        int64_t(tt + 2) * (kM / tt) * ldx * 2 + int64_t(C) * ldw * 2;
-    const int64_t staging = int64_t(kM) * ldc * 4;
-    return operands > staging ? operands : staging;
+struct Smem {
+  static constexpr int kW = 3 * C * C * 2;
+  static constexpr int kSlot = kRows * C * 2;
+  static constexpr int kBytes = kW + kWG * kRing * kSlot;
+};
+
+// max(v, bf16(0.01) * v) on a fragment of bf16 pairs: the product rounded
+// to bf16 as in the plain version (bf16 x bf16 is exact in float32)
+struct LeakyBf16 {
+  bool on;
+  __device__ __forceinline__ void operator()(uint32_t (&r)[4]) const {
+    if (!on) return;
+    const __nv_bfloat162 slope = __float2bfloat162_rn(kNegSlopeBf16);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&r[i]);
+      v = __hmax2(v, __hmul2(v, slope));
+      r[i] = *reinterpret_cast<uint32_t*>(&v);
+    }
   }
 };
 
 template <int C>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWG * 128)
     timetap_conv_kernel(TimeTapArgs p) {
-  using L = Layout<C>;
-  constexpr int NT = C / 16 / 2;  // n-tiles per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kg = kM / p.tt;  // g positions per block
-  const int rows = (p.tt + 2) * kg;
-  bf16* tile = reinterpret_cast<bf16*>(smem);
-  bf16* wt = tile + rows * L::ldx;
-  float* stage = reinterpret_cast<float*>(smem);  // after the products
+  using S = Smem<C>;
+  constexpr int CH = C / 8;       // 16-byte chunks of a position
+  constexpr int PP = 128 / CH;    // positions one pass of a warpgroup covers
+  constexpr int KP = kRows / PP;  // chunks a thread owns in a row
+  constexpr int KK = C / 16;      // k16 steps per tap
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int wg = threadIdx.x / 128;
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t w_s = sm90::smem_u32(smem);
+  const uint32_t ring_s = w_s + S::kW + wg * kRing * S::kSlot;
 
-  const int bi = blockIdx.z;
-  const int t0 = blockIdx.y * p.tt;
-  const int g0 = blockIdx.x * kg;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp % 4;
-  const int wn = warp / 4;
-  const int64_t row_stride = int64_t(p.g) * C;  // elements per time row
-  const bf16* xb = p.x + int64_t(bi) * p.t * row_stride;
+  // ---- the weights, once per block ---------------------------------------
+  for (int i = threadIdx.x; i < S::kW / 16; i += blockDim.x)
+    sm90::cp_async16(w_s + 16 * i, reinterpret_cast<const uint4*>(p.w) + i);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  sm90::fence_proxy_async();
+  __syncthreads();
 
-  // ---- activated halo, rows (t0 - 1 .. t0 + tt) x (g0 .. g0 + kg) -------
-  constexpr int c8 = C / 8;
-  for (int idx = tid; idx < rows * c8; idx += blockDim.x) {
-    const int r = idx / c8;
-    const int ch = (idx - r * c8) * 8;
-    const int rt = r / kg;
-    const int gt = t0 - 1 + rt;
-    const int gg = g0 + (r - rt * kg);
-    bf16* dst = tile + r * L::ldx + ch;
-    if (gt < 0 || gt >= p.t || gg >= p.g) {
-      lass::zero8(dst);
-      continue;
-    }
-    const bf16* src = xb + gt * row_stride + int64_t(gg) * C + ch;
-    if (!p.fuse_act) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      continue;
-    }
-    float v[8];
-    lass::load8(src, v);
+  const int64_t walkers = int64_t(gridDim.x) * kWG;
+  const int64_t walker = int64_t(blockIdx.x) * kWG + wg;
+  int64_t u = walker * p.units / walkers;
+  const int64_t u_end = (walker + 1) * p.units / walkers;
+
+  // this thread's chunks (copies in, stores out): channel chunk ch of
+  // positions p0 + k * PP, at byte chunk_off[k] of a slot
+  const int ch = wt % CH;
+  const int p0 = wt / CH;
+  int chunk_off[KP];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      v[i] = fmaxf(v[i], lass::bf16_round(__fmul_rn(kNegSlopeBf16, v[i])));
-    }
-    lass::store8(dst, v);
+  for (int k = 0; k < KP; ++k) {
+    const int pos = p0 + k * PP;
+    chunk_off[k] = pos * (C * 2) + ((ch ^ sm90::swizzle_key(pos, CH)) * 16);
   }
+  // this lane's ldmatrix / stmatrix row, and its swizzle
+  const int lrow = warp * 16 + (lane & 15);
+  const int lhi = lane >> 4;
+  const int lkey = sm90::swizzle_key(lrow, CH);
+  const int64_t row_elems = int64_t(p.g) * C;
+  const int bar = 1 + wg;
+  const LeakyBf16 act{p.fuse_act != 0};
 
-  // ---- 3 taps x (C / 16) k-steps of WMMA -------------------------------
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMT][NT];
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) wmma::fill_fragment(acc[mi][ni], 0.0f);
+  while (u < u_end) {
+    const int64_t col = u / p.col_units;
+    const int64_t col_end = (col + 1) * p.col_units;
+    const int64_t u_stop = u_end < col_end ? u_end : col_end;
+    const int t_s = int(u - col * p.col_units) * p.unit_rows;
+    const int t_e = min(p.t, int(u_stop - col * p.col_units) * p.unit_rows);
+    u = u_stop;
+    const int bi = int(col / p.gblocks);
+    const int g0 = int(col % p.gblocks) * kRows;
+    const int64_t base = int64_t(bi) * p.t * row_elems + int64_t(g0) * C + ch * 8;
+    const bf16* xb = p.x + base;
+    bf16* ob = p.out + base;
 
-  for (int dt = 0; dt < 3; ++dt) {
-    __syncthreads();  // the previous tap's weights are consumed
-    lass::copy_rows(wt, L::ldw, p.w + int64_t(dt) * C * C, C, C, c8);
-    __syncthreads();
+    // copy row r if a step of this range reads it (rows outside [0, T)
+    // and positions past G: zeros), and close a cp.async group
+    auto issue = [&](int r) {
+      if (r <= t_e) {
+        const uint32_t slot = ring_s + (r & (kRing - 1)) * S::kSlot;
+        const bool in_t = r >= 0 && r < p.t;
 #pragma unroll
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          af[kMT];
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi) {
-        wmma::load_matrix_sync(
-            af[mi], tile + (wm * kWarpRows + mi * 16 + dt * kg) * L::ldx + k0,
-            L::ldx);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, wt + k0 * L::ldw + (wn * NT + ni) * 16,
-                               L::ldw);
-#pragma unroll
-        for (int mi = 0; mi < kMT; ++mi) {
-          wmma::mma_sync(acc[mi][ni], af[mi], bf, acc[mi][ni]);
+        for (int k = 0; k < KP; ++k) {
+          const int pos = p0 + k * PP;
+          if (in_t && g0 + pos < p.g) {
+            sm90::cp_async16(slot + chunk_off[k], xb + r * row_elems + pos * C);
+          } else {
+            sm90::st_shared_zero16(slot + chunk_off[k]);
+          }
         }
       }
-    }
-  }
+      sm90::cp_async_commit();
+    };
 
-  // ---- accumulators -> shared float32 -> bf16 output ------------------
-  __syncthreads();  // every warp is done reading the operands
+    sm90::bar_sync(bar, 128);  // the previous range's reads are done
+    for (int r = t_s - 1; r < t_s + kRing - 1; ++r) issue(r);
+
+    for (int t = t_s; t < t_e; ++t) {
+      sm90::cp_async_wait<kRing - 3>();  // this thread's row t + 1 landed
+      sm90::bar_sync(bar, 128);  // every thread's copies of rows t - 1 .. t + 1
+
+      float acc[C / 2];
+      auto a_addr = [&](int dt, int kk) {
+        return ring_s + ((t - 1 + dt) & (kRing - 1)) * S::kSlot +
+               lrow * (C * 2) + (((2 * kk + lhi) ^ lkey) * 16);
+      };
+      sm90::mma_taps<C, KK, true, 3>(acc, KK, a_addr, act, w_s);
+
+      // accumulators -> bf16 in row t - 1's slot -> device memory. The
+      // products are done, so every warp's reads of row t - 1 are (a
+      // wgmma completes only once all four warps have issued it, after
+      // their ldmatrix). Each thread reads back exactly the chunks it
+      // copies in next, so row t + kRing - 1 may follow without a barrier.
+      const uint32_t stage = ring_s + ((t - 1) & (kRing - 1)) * S::kSlot;
+      sm90::store_tile<C>(acc, stage, C * 2, lrow, lhi);
+      sm90::bar_sync(bar, 128);
+      bf16* orow = ob + int64_t(t) * row_elems;
+      uint4 v[KP];
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+      for (int k = 0; k < KP; ++k)
+        v[k] = *reinterpret_cast<const uint4*>(smem + (stage - w_s) +
+                                               chunk_off[k]);
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      wmma::store_matrix_sync(
-          stage + (wm * kWarpRows + mi * 16) * L::ldc + (wn * NT + ni) * 16,
-          acc[mi][ni], L::ldc, wmma::mem_row_major);
+      for (int k = 0; k < KP; ++k) {
+        const int pos = p0 + k * PP;
+        if (g0 + pos < p.g) *reinterpret_cast<uint4*>(orow + pos * C) = v[k];
+      }
+      issue(t + kRing - 1);
     }
-  __syncthreads();
-  bf16* ob = p.out + int64_t(bi) * p.t * row_stride;
-  for (int idx = tid; idx < kM * c8; idx += blockDim.x) {
-    const int m = idx / c8;
-    const int n = (idx - m * c8) * 8;
-    const int rt = m / kg;
-    const int gt = t0 + rt;
-    const int gg = g0 + (m - rt * kg);
-    if (gt >= p.t || gg >= p.g) continue;
-    lass::store8(ob + gt * row_stride + int64_t(gg) * C + n,
-                 stage + m * L::ldc + n);
   }
 }
 
 template <int C>
-int launch(const TimeTapArgs& p, int batch, cudaStream_t stream) {
-  const int64_t bytes = Layout<C>::smem_bytes(p.tt);
-  const int err = lass::allow_smem(timetap_conv_kernel<C>, bytes);
+int launch(TimeTapArgs p, cudaStream_t stream) {
+  constexpr int bytes = Smem<C>::kBytes;
+  static_assert(bytes <= lass::kMaxSmem, "ring and weights exceed the SM");
+  auto kernel = timetap_conv_kernel<C>;
+  int err = lass::allow_smem(kernel, bytes);
   if (err != 0) return err;
-  const int kg = kM / p.tt;
-  const dim3 grid((p.g + kg - 1) / kg, (p.t + p.tt - 1) / p.tt, batch);
-  timetap_conv_kernel<C><<<grid, kWarps * 32, bytes, stream>>>(p);
+  int resident = 0;
+  err = lass::resident_blocks(kernel, kWG * 128, bytes, &resident);
+  if (err != 0) return err;
+  const int64_t want = (p.units + kWG - 1) / kWG;
+  const int blocks = int(want < resident ? want : resident);
+  kernel<<<blocks, kWG * 128, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,29 +253,32 @@ int launch(const TimeTapArgs& p, int batch, cudaStream_t stream) {
 
 // C entry point bound with ctypes. Pointers and the stream come as void*,
 // sizes as int64. The caller guarantees: x and out contiguous (B, T, G, C)
-// bf16, w contiguous (3C, C) bf16, every pointer 16-byte aligned, C 32, 64
-// or 128, t_tile 16, 32 or 64. Returns cudaGetLastError() after the launch
-// (0 on success).
+// bf16, w the (3C, C) weights packed by lass_torch.ops._common.pack_b (taps
+// 3, K = C, N = C), every pointer 16-byte aligned, C 32, 64 or 128, t_tile
+// 16, 32 or 64. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int lass_timetap_conv(const void* x, const void* w, void* out,
                                  int64_t batch, int64_t t, int64_t g,
                                  int64_t c, int64_t t_tile, int64_t fuse_act,
                                  void* stream) {
+  if (batch == 0 || t == 0 || g == 0) return static_cast<int>(cudaSuccess);
+  if (t_tile != 16 && t_tile != 32 && t_tile != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   TimeTapArgs p;
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
   p.out = static_cast<bf16*>(out);
   p.t = int(t);
   p.g = int(g);
-  p.tt = int(t_tile);
   p.fuse_act = int(fuse_act != 0);
-  if (batch == 0 || t == 0 || g == 0) return static_cast<int>(cudaSuccess);
-  if (t_tile != 16 && t_tile != 32 && t_tile != 64)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.gblocks = int((g + kRows - 1) / kRows);
+  p.unit_rows = int(t_tile);
+  p.col_units = int((t + t_tile - 1) / t_tile);
+  p.units = batch * p.gblocks * p.col_units;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 32: return launch<32>(p, int(batch), s);
-    case 64: return launch<64>(p, int(batch), s);
-    case 128: return launch<128>(p, int(batch), s);
+    case 32: return launch<32>(p, s);
+    case 64: return launch<64>(p, s);
+    case 128: return launch<128>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

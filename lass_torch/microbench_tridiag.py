@@ -11,6 +11,12 @@ channels_last (B, C, T, G) tensor (the counterpart of the original's
 un-activated function; the kernel ``lass_torch.ops.timetap_conv`` at each
 t_tile with and without the fused activation; and its plain version.
 Needs a card: there is no CPU measurement.
+
+The kernel is persistent: its warpgroups split the (batch, 64-position g
+block) columns into units of t_tile time rows, each walking an equal share
+of units down T with the halo carried. t_tile (the original's ``tt``, its
+time rows per grid step) is therefore only the granularity of that split:
+the sweep over ``T_TILES`` shows what the balance costs, not a tile size.
 """
 from __future__ import annotations
 

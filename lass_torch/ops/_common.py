@@ -1,5 +1,6 @@
 """Argument checks and launch plumbing shared by the conv kernels' wrappers
-(``act_conv``, ``convblock``, ``convt`` and the fused head in ``masking``).
+(``act_conv``, ``convblock``, ``convt``, ``timetap_conv`` and the fused head
+in ``masking``), and the weight packing of the wgmma kernels.
 """
 from __future__ import annotations
 
@@ -64,3 +65,19 @@ def launch(fn, device: torch.device, what: str, *args) -> None:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def pack_b(w: torch.Tensor) -> torch.Tensor:
+    """(taps, K, N) weights -> wgmma's K-major B layout without swizzle, as
+    ``csrc/sm90_pipe.cuh`` reads it: for each tap and k16 step, 8 x 8 core
+    matrices (N / 8, 2 halves of K), each 8 N-rows of 8 contiguous K
+    values. Returns a contiguous (taps, K / 16, N / 8, 2, 8, 8) tensor;
+    K % 16 == 0 and N % 8 == 0."""
+    taps, k, n = w.shape
+    if k % 16 or n % 8:
+        raise ValueError(f"pack_b needs K % 16 == 0 and N % 8 == 0, got "
+                         f"{tuple(w.shape)}")
+    # [tap, kk, khalf, k8, nb, n8] -> [tap, kk, nb, khalf, n8, k8]
+    return w.reshape(taps, k // 16, 2, 8, n // 8, 8).permute(
+        0, 1, 4, 2, 5, 3).contiguous()
+

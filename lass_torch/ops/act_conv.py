@@ -26,6 +26,16 @@ from lass_torch.ops import _common
 # number of kernel launches since the last reset (the CPU path never adds)
 LAUNCHES = 0
 _WHAT = "fused act+conv3x3"
+# widest input the kernel takes: 9 x 128 x 64 bf16 weights (147 KB), its
+# ring of four 66-position rows (66 KB) and its output stage (8 KB) fill a
+# block's shared memory
+MAX_CIN = 128
+
+
+def tap_weights(w: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, 3, 3) -> (tap = 3 * dt + df, C_in, C_out)."""
+    cout, cin = w.shape[:2]
+    return w.detach().permute(2, 3, 1, 0).reshape(9, cin, cout)
 
 
 def act_conv3x3_plain(sources: Sequence[torch.Tensor], w: torch.Tensor,
@@ -73,16 +83,16 @@ def _launch(sources, w, a, b) -> torch.Tensor:
     x0 = sources[0]
     cin, cout = w.shape[1], w.shape[0]
     _common.require_bf16_rows(_WHAT, sources)
-    if sources[0].shape[1] % 8 or cin % 16 or cout not in (32, 64):
+    if (sources[0].shape[1] % 8 or cin % 16 or cin > MAX_CIN
+            or cout not in (32, 64)):
         raise ValueError(
             f"{_WHAT} kernel needs source-0 channels % 8 == 0, C_in % 16 == 0"
-            f" and C_out 32 or 64; got "
+            f" and at most {MAX_CIN} (its nine taps' weights stay in shared "
+            f"memory), and C_out 32 or 64; got "
             f"{[s.shape[1] for s in sources]} -> {cout}")
     lib = load_library()
     batch, _, t, f = x0.shape
-    # (C_out, C_in, 3, 3) -> (tap = 3 * dt + df, C_in, C_out), bf16
-    wp = w.detach().to(torch.bfloat16).permute(2, 3, 1, 0).reshape(
-        9, cin, cout).contiguous()
+    wp = _common.pack_b(tap_weights(w).to(torch.bfloat16))
     a = a.detach().float().contiguous()
     b = b.detach().float().contiguous()
     out = torch.empty((batch, cout, t, f), dtype=torch.bfloat16,

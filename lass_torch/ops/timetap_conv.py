@@ -78,7 +78,7 @@ def _launch(x, w3, fuse_act: bool, t_tile: int) -> torch.Tensor:
         raise ValueError(f"{_WHAT} kernel takes C of 32, 64 or 128 and a "
                          f"16-byte aligned x, got C={c}")
     lib = load_library()
-    w = w3.detach().to(torch.bfloat16).contiguous()
+    w = _common.pack_b(w3.detach().to(torch.bfloat16).view(3, c, c))
     out = torch.empty_like(x)
     _common.launch(lib.lass_timetap_conv, x.device, _WHAT, x.data_ptr(),
                    w.data_ptr(), out.data_ptr(), b, t, g, c, t_tile,
@@ -90,7 +90,10 @@ def _launch(x, w3, fuse_act: bool, t_tile: int) -> torch.Tensor:
 def timetap_conv(x: torch.Tensor, w3: torch.Tensor, fuse_act: bool = False,
                  t_tile: int = 16) -> torch.Tensor:
     """x: (B, T, G, C); w3: (3C, C), cast to x's dtype; t_tile (16, 32 or
-    64: the kernel's time rows per block, the microbench's ``tt``).
+    64, the microbench's ``tt``): the kernel's persistent warpgroups split
+    the (batch, 64-position g block) columns into units of t_tile time
+    rows, each warpgroup walking an equal share of units down T with the
+    halo carried, so t_tile sets the granularity of that split.
     Returns (B, T, G, C) in x's dtype. CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise."""
     _check(x, w3, t_tile)

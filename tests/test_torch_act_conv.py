@@ -23,7 +23,7 @@ from lass_tpu.ops.pallas_folded_conv import (
     fused_act_folded_conv, reference_act_folded_conv)
 from lass_torch.nn.blocks import ConvBlockRes
 from lass_torch.nn.fused import FusedConvBlockRes
-from lass_torch.ops import act_conv, convblock
+from lass_torch.ops import _common, act_conv, convblock
 
 
 def to_port(x_nhwc):
@@ -173,3 +173,42 @@ def test_conv_block_wrapper_errors(rng):
     with pytest.raises(RuntimeError, match="no backward"):
         convblock.fused_residual_conv_block(x.requires_grad_(True), w, w,
                                             *vecs)
+
+
+def unpack_b(packed):
+    """(taps, K / 16, N / 8, 2, 8, 8) -> (taps, K, N): pack_b undone."""
+    taps, kk, nb = packed.shape[:3]
+    return packed.permute(0, 1, 3, 5, 2, 4).reshape(taps, 16 * kk, 8 * nb)
+
+
+@pytest.mark.parametrize("taps,k,n", [(9, 32, 32), (9, 48, 64),
+                                      (9, 128, 64), (3, 128, 128)])
+def test_pack_b_round_trip(rng, taps, k, n):
+    """The wgmma kernels' weight layout (csrc/sm90_pipe.cuh): an exact
+    round trip back to (tap, C_in, C_out), and each element at the offset
+    the B descriptor reads it from (core matrices of 8 N-rows x 8 K, 128
+    bytes apart along K and 256 along N, one N x 16 block per k16 step)."""
+    w = torch.from_numpy(rng.randn(taps, k, n).astype(np.float32)).to(
+        torch.bfloat16)
+    packed = _common.pack_b(w)
+    assert packed.is_contiguous()
+    assert torch.equal(unpack_b(packed), w)
+    flat = packed.reshape(-1)
+    for tap, kx, nx in [(0, 0, 0), (taps - 1, k - 1, n - 1), (1, 9, 13),
+                        (taps // 2, k // 2 + 7, n // 2 + 3)]:
+        block = (tap * (k // 16) + kx // 16) * n * 16
+        core = (nx // 8) * 128 + ((kx % 16) // 8) * 64
+        assert flat[block + core + (nx % 8) * 8 + kx % 8] == w[tap, kx, nx]
+    with pytest.raises(ValueError, match="K % 16"):
+        _common.pack_b(w[:, :8])
+
+
+def test_tap_weights_order(rng):
+    """(C_out, C_in, 3, 3) -> (tap = 3 * dt + df, C_in, C_out), the order
+    in which the kernel walks the taps."""
+    w = torch.from_numpy(rng.randn(32, 16, 3, 3).astype(np.float32))
+    taps = act_conv.tap_weights(w)
+    assert taps.shape == (9, 16, 32)
+    for dt in range(3):
+        for df in range(3):
+            assert torch.equal(taps[3 * dt + df], w[:, :, dt, df].T)

@@ -83,18 +83,26 @@ def _close_bf16(got, ref, ulps=1):
     assert err <= ulps * BF16_ULP * max(scale, 1e-30), (err, scale)
 
 
+# The last eight cases are the persistent schedule's edges: T and F off
+# the 64-frequency strip, one batch (fewer columns than SMs), T = 1 and 2
+# (every halo row is padding), sources split 8 + 24, the widest input
+# (64 + 64) -> 64, and C_in 48 (a chunk count that does not divide a
+# warpgroup).
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels,cout,t,f", [((32,), 32, 37, 50),
-                                               ((16, 16), 32, 37, 50),
-                                               ((64, 64), 64, 16, 64),
-                                               ((32,), 64, 9, 33)])
-def test_act_conv_matches_plain_on_card(rng, channels, cout, t, f):
+@pytest.mark.parametrize("b,channels,cout,t,f", [
+    (2, (32,), 32, 37, 50), (2, (16, 16), 32, 37, 50),
+    (2, (64, 64), 64, 16, 64), (2, (32,), 64, 9, 33),
+    (2, (32,), 32, 70, 130), (1, (32,), 64, 5, 20), (1, (32,), 32, 1, 64),
+    (2, (16, 16), 32, 2, 65), (2, (8, 24), 32, 19, 71),
+    (2, (64, 64), 64, 11, 131), (1, (64, 64), 64, 1, 7),
+    (2, (48,), 64, 6, 33)])
+def test_act_conv_matches_plain_on_card(rng, b, channels, cout, t, f):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     from lass_torch.ops import act_conv
 
     _strict_float32()
-    b, cin = 2, sum(channels)
+    cin = sum(channels)
     sources = [_card(rng, b, c, t, f, cl=True) for c in channels]
     w = _card(rng, cout, cin, 3, 3, scale=0.1)
     a = 1 + 0.1 * _card(rng, b, cin)
@@ -253,11 +261,19 @@ def test_mask_b2_gradient_on_card(rng):
             1.0, r.abs().max().item())
 
 
+# The last five shapes are the persistent schedule's edges: one batch
+# (fewer units than warpgroups), T = 1 and 2 (every halo row is padding),
+# T off t_tile and G off the 64-position block, at each C.
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,t_tile", [((2, 37, 5, 128), 16),
                                           ((1, 70, 3, 128), 32),
                                           ((2, 9, 7, 64), 64),
-                                          ((1, 33, 4, 32), 16)])
+                                          ((1, 33, 4, 32), 16),
+                                          ((1, 1, 70, 128), 16),
+                                          ((1, 2, 64, 64), 32),
+                                          ((3, 45, 130, 32), 64),
+                                          ((1, 300, 65, 128), 16),
+                                          ((2, 17, 64, 64), 16)])
 @pytest.mark.parametrize("act", [False, True])
 def test_timetap_conv_matches_plain_on_card(rng, shape, t_tile, act):
     if not torch.cuda.is_available():
@@ -277,3 +293,4 @@ def test_timetap_conv_matches_plain_on_card(rng, shape, t_tile, act):
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     scale = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= BF16_ULP * scale
+

@@ -26,6 +26,10 @@ from lass_torch.models.resunet import ResUNet30
 
 LENGTH = 8000  # 0.5 s: T = 51 frames, padded to 64 inside the UNet
 
+# XLA options for the one-off JAX init
+INIT_COMPILE_OPTIONS = {"xla_backend_optimization_level": 0,
+                        "xla_llvm_disable_expensive_passes": True}
+
 
 def rel_err(ours, ref) -> float:
     ref = np.asarray(ref, np.float64)
@@ -67,8 +71,11 @@ def jax_variables():
     model = JaxResUNet30(freq_fold=1)
     dummy = {"mixture": jnp.zeros((1, 1, LENGTH)),
              "condition": jnp.zeros((1, 512))}
-    variables = jax.jit(lambda k: model.init(k, dummy, train=False))(
-        jax.random.PRNGKey(0))
+    # compiled at XLA's lowest optimisation level: the same values as the
+    # default level (bit for bit), in half its compile time
+    key = jax.random.PRNGKey(0)
+    variables = jax.jit(lambda k: model.init(k, dummy, train=False)).lower(
+        key).compile(INIT_COMPILE_OPTIONS)(key)
     rng = np.random.RandomState(7)
     return {"params": _perturb(jax.device_get(variables["params"]), rng),
             "batch_stats": _perturb(jax.device_get(variables["batch_stats"]),
