@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    parallel, at first use);
 3. each kernel against its plain PyTorch version at every distinct shape
    the serving forward gives it (B=16 clips of 10 s) and at ragged shapes
-   (B3 also at the edges of its persistent schedule), plus gradient cases
+   (B3, B4 and B5 also at the edges of their persistent schedules:
+   B3_EDGES, B4_EDGES, B5_EDGES), plus gradient cases
    for the mask kernels; the six-input mask mode (B2, no caller in either
    package: this phase is its path) at the serving shape; the time-tap
    conv (B7) at its microbench's shape (16, 1024, 128, 128) and ragged
@@ -30,8 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels' plain versions there);
 6. times with CUDA events: the B=16 x 10 s bf16 forward of the default
    configuration, A and B, caption encoding, each kernel against its bound
-   and its plain version at each serving shape (cuDNN's bare conv beside
-   the fused 3x3 conv as context), the B7 microbench
+   and its plain version at each serving shape, with a context call
+   beside B3, B4 and B5 that is not the same function (``context_call``:
+   cuDNN's bare conv, the sparse route of two B3 launches and the add,
+   cuDNN's bare transposed conv), the B7 microbench
    (``lass_torch.microbench_tridiag``, its launches counted), and the bf16
    train step's steps/s and peak memory at the phase-7 shape;
 7. train: ``python -m lass_torch.train`` in a subprocess, full-width
@@ -407,11 +410,70 @@ def b3_edge_cases(device, seed=2):
     return cases
 
 
+# B4 and B5 at the edges of their persistent schedules: T = 1, 2 and 3
+# (every halo row is padding), F off the strip (B4: 62 outputs, B5: 64
+# positions), F smaller than one strip, the serving F = 512 (which 62 does
+# not divide) at a short T, one batch (fewer columns than warpgroups), and
+# a one-batch view into a larger tensor (its batch stride and offset are
+# not a contiguous tensor's). B4: (b, T, F, batch view); B5: (b, C_in,
+# C_out, T, F, batch view).
+B4_EDGES = [(2, 1, 100, False), (2, 2, 512, False), (1, 3, 40, False),
+            (2, 37, 100, False), (1, 9, 62, False), (3, 5, 63, False),
+            (1, 11, 70, True)]
+B5_EDGES = [(2, 128, 64, 1, 100, False), (2, 64, 32, 2, 20, False),
+            (1, 64, 32, 3, 512, False), (1, 128, 64, 5, 37, False),
+            (2, 64, 32, 7, 65, False), (1, 64, 32, 6, 33, True),
+            (1, 128, 64, 4, 130, True)]
+
+
+def b4_b5_edge_cases(device, seed=4):
+    import torch
+
+    from lass_torch.ops import convblock, convt
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, around=0.0):
+        return around + scale * torch.randn(*shape, generator=gen,
+                                            device=device)
+
+    def act(b, c, t, f, view):
+        x = randn(2 * b if view else b, c, t, f).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        return x[1::2] if view else x
+
+    cases = []
+    for b, t, f, view in B4_EDGES:
+        u = 32
+        cases.append(dict(
+            kernel="fused_residual_conv_block", ulps=2,
+            label=f"schedule edge {u} at {b}x{t}x{f}"
+                  + (", batch view" if view else ""),
+            fn=convblock.fused_residual_conv_block,
+            plain=convblock.residual_conv_block_plain,
+            args=(act(b, u, t, f, view),
+                  randn(u, u, 3, 3, scale=(9 * u) ** -0.5),
+                  randn(u, u, 3, 3, scale=(9 * u) ** -0.5),
+                  randn(b, u, scale=0.1, around=1.0), randn(b, u, scale=0.1),
+                  randn(b, u, scale=0.1, around=1.0),
+                  randn(b, u, scale=0.1))))
+    for b, cin, cout, t, f, view in B5_EDGES:
+        cases.append(dict(
+            kernel="fused_act_convT", ulps=1,
+            label=f"schedule edge {cin}->{cout} at {b}x{t}x{f}"
+                  + (", batch view" if view else ""),
+            fn=convt.fused_act_convT, plain=convt.act_convT_plain,
+            args=(act(b, cin, t, f, view), randn(cin, scale=0.1, around=1.0),
+                  randn(cin, scale=0.1), randn(b, cin, scale=0.1),
+                  randn(cin, cout, 2, 2, scale=cin ** -0.5))))
+    return cases
+
+
 def check_fused_kernels(device):
     """Phase 3 for the fused kernels: every serving shape, the same set at
     ragged sizes (b=2, level 1 of 74 x 100, two output channels for the
-    head), B3 at the edges of its schedule (B3_EDGES), and a head
-    gradient. Returns the largest error per kernel at the serving
+    head), B3, B4 and B5 at the edges of their schedules (B3_EDGES,
+    B4_EDGES, B5_EDGES), and a head gradient. Returns the largest error per kernel at the serving
     shapes."""
     import torch
 
@@ -421,8 +483,9 @@ def check_fused_kernels(device):
     for case in fused_cases(device):
         err = check_case(case)
         worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), err)
+    edges = b3_edge_cases(device) + b4_b5_edge_cases(device)
     for case in fused_cases(device, b=2, l1=(74, 100), t_out=70,
-                            head_channels=2, seed=1) + b3_edge_cases(device):
+                            head_channels=2, seed=1) + edges:
         check_case(case)
     gen = torch.Generator(device=device).manual_seed(3)
     h = torch.randn(1, 32, 5, 24, generator=gen, device=device).to(
@@ -571,14 +634,53 @@ def card_vs_cpu(sep, config="default", dtype="float32", batch=2, seed=5,
     return err
 
 
-def time_fused_kernels(iters=5, reps=10):
-    """Phase 6 for the fused kernels: each serving case, kernel and plain
-    version in turns (plain, kernel, kernel, plain); beside each 3x3 case,
-    cuDNN's bare bf16 conv on the pre-activated channels_last input (the
-    concat materialised). Returns per-case rows and per-kernel totals per
-    forward (sum over its launches)."""
+def context_call(case):
+    """A call beside a fused kernel's row in phase 6, never on the path and
+    not the same function (so never its library call): for B3, cuDNN's
+    bare bf16 conv on the pre-activated channels_last input (the concat
+    materialised); for B4, the sparse route at the same shape (two B3
+    launches and the residual add, y1 rounded to bf16 between them); for
+    B5, cuDNN's bare bf16 conv_transpose2d on the pre-activated
+    channels_last input. Returns (label, fn) or None."""
     import torch
     import torch.nn.functional as F
+
+    from lass_torch.ops import act_conv
+
+    cl = torch.channels_last
+    if case["kernel"] == "fused_act_conv3x3":
+        srcs, w, a, b = case["args"]
+        x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, 1)
+        h = F.leaky_relu(x.float() * a[:, :, None, None]
+                         + b[:, :, None, None], 0.01).to(x.dtype)
+        h, wb = h.contiguous(memory_format=cl), w.to(x.dtype)
+        return ("cuDNN bare conv on the pre-activated input",
+                lambda: F.conv2d(h, wb, padding=1))
+    if case["kernel"] == "fused_residual_conv_block":
+        x, w1, w2, a1, b1, a2, b2 = case["args"]
+
+        def sparse():
+            h = act_conv.fused_act_conv3x3([x], w1, a1, b1)
+            return x + act_conv.fused_act_conv3x3([h], w2, a2, b2)
+        return "sparse route (two B3 launches + the add)", sparse
+    if case["kernel"] == "fused_act_convT":
+        x, inv, shift, beta, w = case["args"]
+        dt = x.dtype
+        z = F.leaky_relu(x * inv.to(dt)[None, :, None, None]
+                         + shift.to(dt)[None, :, None, None]
+                         + beta.to(dt)[:, :, None, None], 0.01)
+        z, wb = z.contiguous(memory_format=cl), w.to(dt)
+        return ("cuDNN bare conv_transpose2d on the pre-activated input",
+                lambda: F.conv_transpose2d(z, wb, stride=2))
+    return None
+
+
+def time_fused_kernels(iters=5, reps=10):
+    """Phase 6 for the fused kernels: each serving case, kernel and plain
+    version in turns (plain, kernel, kernel, plain), and beside B3, B4 and
+    B5 their context call (``context_call``). Returns per-case rows and
+    per-kernel totals per forward (sum over its launches)."""
+    import torch
 
     rows, totals = [], {}
     for case in fused_cases("cuda"):
@@ -589,16 +691,9 @@ def time_fused_kernels(iters=5, reps=10):
                 fn = case["plain"] if name == "plain" else case["fn"]
                 runs[name].append(cuda_ms(lambda: fn(*args), iters, 2,
                                           reps))
-            cudnn_ms = None
-            if case["kernel"] == "fused_act_conv3x3":
-                srcs, w, a, b = args
-                x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, 1)
-                h = F.leaky_relu(x.float() * a[:, :, None, None]
-                                 + b[:, :, None, None], 0.01).to(x.dtype)
-                h = h.contiguous(memory_format=torch.channels_last)
-                wb = w.to(x.dtype)
-                cudnn_ms = cuda_ms(lambda: F.conv2d(h, wb, padding=1),
-                                   iters, 2, reps)
+            context = context_call(case)
+            context_ms = (None if context is None else
+                          cuda_ms(context[1], iters, 2, reps))
         bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = case["ops"] / case["rate"] * 1e3
         row = {"kernel": case["kernel"], "label": case["label"],
@@ -607,26 +702,26 @@ def time_fused_kernels(iters=5, reps=10):
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": case["bytes"], "ops": case["ops"],
-               "cudnn_conv_ms": cudnn_ms}
+               "context": context and context[0], "context_ms": context_ms}
         rows.append(row)
         log(f"{row['kernel']} at {row['label']} (x{case['n']} per "
             f"forward): {row['ms'] * 1e3:.1f} us, plain "
             f"{row['plain_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f}"
             f" us ({row['bound_by']}: {case['bytes'] / 1e6:.1f} MB, "
             f"{case['ops'] / 1e9:.1f} G ops)"
-            + ("" if cudnn_ms is None else
-               f"; cuDNN bare conv on the pre-activated input (context, not "
-               f"the same function) {cudnn_ms * 1e3:.1f} us"))
+            + ("" if context_ms is None else
+               f"; {context[0]} (context, not the same function) "
+               f"{context_ms * 1e3:.1f} us"))
         tot = totals.setdefault(case["kernel"], {
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
             "ops_ms": 0.0})
         for key, val in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
                          ("bound_ms", row["bound_ms"]),
                          ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
-                         ("cudnn_conv_ms", cudnn_ms)):
+                         ("context_ms", context_ms)):
             if val is not None:
                 tot[key] = tot.get(key, 0.0) + case["n"] * val
-        del case, args
+        del case, args, context
     return rows, totals
 
 
@@ -989,10 +1084,14 @@ def main():
             f"{m['plain_ms'] * 1e3:.1f} us, bound {m['bound_ms'] * 1e3:.1f} "
             f"us ({m['bound_by']})")
     rows, totals = time_fused_kernels()
-    b3 = totals["fused_act_conv3x3"]
-    log(f"fused_act_conv3x3 per config-A forward (8 launches): "
-        f"{b3['ms']:.3f} ms, bound {b3['bound_ms']:.3f} ms, cuDNN's bare "
-        f"convs at the same shapes {b3['cudnn_conv_ms']:.3f} ms")
+    for name, what in (("fused_act_conv3x3", "config-A forward (8 launches)"),
+                       ("fused_residual_conv_block",
+                        "config-B forward (1 launch)"),
+                       ("fused_act_convT", "A or B forward (2 launches)")):
+        tot = totals[name]
+        log(f"{name} per {what}: {tot['ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.3f} ms, context at the same shapes "
+            f"{tot['context_ms']:.3f} ms")
     timetap, timetap_rows = time_timetap()
     log(f"timetap_conv at its best t_tile {timetap['t_tile']}: "
         f"{timetap['ms']:.3f} ms, plain {timetap['plain_ms']:.3f} ms, "

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the persistent conv kernels
-// (act_conv.cu, timetap_conv.cu), as inline PTX: 16-byte cp.async copies
-// with commit/wait groups, ldmatrix and stmatrix, warpgroup named
-// barriers, the wgmma fences and groups, wgmma.mma_async m64n{32,64,128}k16
-// bf16 -> f32 with A from registers and B from shared memory, the
-// no-swizzle shared memory descriptor of B, the tap loop that both kernels
-// run, and the stmatrix epilogue. Plain PTX, no CuTe: the whole library
-// builds in about 10 s on the card.
+// (act_conv.cu, convblock.cu, convt.cu, timetap_conv.cu), as inline PTX:
+// 16-byte cp.async copies with commit/wait groups, ldmatrix and stmatrix,
+// warpgroup named barriers, the wgmma fences and groups,
+// wgmma.mma_async m64n{32,64,128}k16 bf16 -> f32 with A from registers
+// and B from shared memory, the no-swizzle shared memory descriptor of B,
+// the tap loop of the 3x3 and time-tap convs, a single product chain on
+// A fragments already in registers (the transposed conv's two phases),
+// and the stmatrix epilogue, which writes either an output stage or a
+// ring slot that a second conv reads (the residual block's h2 rows).
+// Plain PTX, no CuTe: the whole library builds in seconds on the card.
 //
 // Fragments (PTX ISA, wgmma register fragments): warp w of a warpgroup
 // holds rows 16w .. 16w + 15 of the 64-row A tile in the layout of the
@@ -94,6 +97,16 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for A fragments that an issued wgmma still reads: fenced after
+// its wait, they stay live (and unreused) until then
+template <int KK>
+__device__ __forceinline__ void fence_frags(uint32_t (&fa)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(fa[kk][i])::"memory");
 }
 
 // no-swizzle descriptor of a K-major B operand at shared address `addr`
@@ -245,6 +258,24 @@ __device__ __forceinline__ void mma_taps(float (&acc)[N / 2], int kk_n,
   fence_regs(acc);
 }
 
+// acc = A @ B over KK k16 steps, A from the fragments `fa`, B block kk at
+// b_base + kk * N * 32 bytes: one wgmma group, committed and NOT waited
+// for (the caller waits with wgmma_wait, then fence_regs(acc)). The
+// first product overwrites acc.
+template <int N, int KK>
+__device__ __forceinline__ void mma_chain(float (&acc)[N / 2],
+                                          const uint32_t (&fa)[KK][4],
+                                          uint32_t b_base) {
+  const uint64_t d0 = desc_b(b_base);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+    wgmma_rs<N>(acc, fa[kk], d0 + ((uint32_t(kk) * (N * 32)) >> 4), kk);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
                                             uint32_t r1, uint32_t r2,
                                             uint32_t r3) {
@@ -273,9 +304,11 @@ __device__ __forceinline__ int swizzle_key(int j, int chunks) {
 
 // The warpgroup's 64 x N float32 accumulators, rounded to bf16, into a
 // shared tile of 64 rows x N bf16 at `tile` (row r at r * row_bytes, its
-// 16-byte chunk c at chunk c ^ swizzle_key(r, N / 8)), by stmatrix: the
-// epilogue then leaves through 16-byte stores. lrow/lhi: this lane's
-// ldmatrix row and half (warp * 16 + (lane & 15), lane >> 4).
+// 16-byte chunk c at chunk c ^ swizzle_key(r, N / 8)), by stmatrix: an
+// output stage that then leaves through 16-byte stores, or a ring slot in
+// the layout ldmatrix reads an A operand from (row_bytes = N * 2).
+// lrow/lhi: this lane's ldmatrix row and half (warp * 16 + (lane & 15),
+// lane >> 4).
 template <int N>
 __device__ __forceinline__ void store_tile(const float (&acc)[N / 2],
                                            uint32_t tile, int row_bytes,

@@ -109,36 +109,37 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
             _compile(find_nvcc(), sources, out_path, verbose)
             last_build_seconds = time.perf_counter() - start
         lib = ctypes.CDLL(out_path)
-        _declare(lib)
+        declare(lib)
         _lib = lib
         return lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    i64, ptr = ctypes.c_int64, ctypes.c_void_p
-    fn = lib.lass_apply_complex_mask_ri
-    fn.argtypes = ([ptr, i64, i64] * 5 + [ptr, ptr, i64, i64, i64, i64, ptr])
-    fn.restype = ctypes.c_int
-    fn = lib.lass_apply_complex_mask
-    fn.argtypes = ([ptr, i64, i64] * 6 + [ptr, ptr, i64, i64, i64, i64, ptr])
-    fn.restype = ctypes.c_int
-    fn = lib.lass_act_conv3x3
-    fn.argtypes = ([ptr, i64, i64, i64, i64] * 2
-                   + [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64,
-                      ptr])
-    fn.restype = ctypes.c_int
-    fn = lib.lass_residual_conv_block
-    fn.argtypes = ([ptr, i64, i64, i64] + [ptr] * 6
-                   + [ptr, i64, i64, i64, i64, i64, i64, i64, ptr])
-    fn.restype = ctypes.c_int
-    fn = lib.lass_act_convt
-    fn.argtypes = [ptr] * 6 + [i64] * 5 + [ptr]
-    fn.restype = ctypes.c_int
-    fn = lib.lass_head_mask
-    fn.argtypes = ([ptr, i64, i64, i64, i64, ptr, ptr, i64,
-                    ptr, i64, i64, ptr, i64, i64, ptr, ptr, i64, i64, i64,
-                    ptr])
-    fn.restype = ctypes.c_int
-    fn = lib.lass_timetap_conv
-    fn.argtypes = [ptr] * 3 + [i64] * 6 + [ptr]
-    fn.restype = ctypes.c_int
+_I64, _PTR = ctypes.c_int64, ctypes.c_void_p
+# argument types of each C entry point (pointers and the stream as void*,
+# sizes and strides as int64); every one returns a CUDA error code
+ARGTYPES = {
+    "lass_apply_complex_mask_ri": [_PTR, _I64, _I64] * 5 + [
+        _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR],
+    "lass_apply_complex_mask": [_PTR, _I64, _I64] * 6 + [
+        _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR],
+    "lass_act_conv3x3": [_PTR, _I64, _I64, _I64, _I64] * 2 + [
+        _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _PTR],
+    "lass_residual_conv_block": [_PTR, _I64, _I64, _I64] + [_PTR] * 5 + [
+        _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _PTR],
+    "lass_act_convt": [_PTR, _I64, _I64, _I64] + [_PTR] * 5 + [_I64] * 8 + [
+        _PTR],
+    "lass_head_mask": [_PTR, _I64, _I64, _I64, _I64, _PTR, _PTR, _I64, _PTR,
+                       _I64, _I64, _PTR, _I64, _I64, _PTR, _PTR, _I64, _I64,
+                       _I64, _PTR],
+    "lass_timetap_conv": [_PTR] * 3 + [_I64] * 6 + [_PTR],
+}
+
+
+def declare(lib: ctypes.CDLL, names=None) -> None:
+    """Set the argument and result types of lib's entry points (all of
+    ARGTYPES, or those named)."""
+    for name in names or ARGTYPES:
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = ctypes.c_int

@@ -8,9 +8,18 @@ logical layout:
     out = x + conv3x3(leaky(a2 * conv3x3(leaky(a1 * x + b1), W1) + b2), W2)
 
 for in == out channels U. On a CUDA tensor it launches
-``lass_torch/csrc/convblock.cu`` (U = 32, bfloat16) or raises; on a
-CPU tensor it runs ``residual_conv_block_plain``. Eval only: no backward,
-as in the JAX package. What bounds the kernel is in its source.
+``lass_torch/csrc/convblock.cu`` (U = 32, bfloat16: encoder_block1's
+block, the only one with an identity shortcut at the widest level) or
+raises; on a CPU tensor it runs ``residual_conv_block_plain``. Eval only:
+no backward, as in the JAX package.
+
+The kernel is persistent: each warpgroup keeps W1 and W2 resident in
+shared memory (their nine taps each, ``act_conv.tap_weights``, packed by
+``_common.pack_b``), walks strips of 62 frequencies down T with x rows
+arriving through a cp.async ring, and keeps y1 and h2 on chip (h2 in a
+three-row ring in shared memory), so it reads x and writes out once. It
+sits on the ridge between bytes and operations; its design and numbers
+are in its source and PERF.md.
 """
 from __future__ import annotations
 
@@ -18,10 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from lass_torch.ops import _common
+from lass_torch.ops.act_conv import tap_weights
 
 # number of kernel launches since the last reset (the CPU path never adds)
 LAUNCHES = 0
 _WHAT = "fused residual conv block"
+# the one width the kernel is built for (the UNet's widest level)
+KERNEL_U = 32
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -63,21 +75,19 @@ def _launch(x, w1, w2, vecs) -> torch.Tensor:
     global LAUNCHES
     _common.require_bf16_rows(_WHAT, [x])
     batch, u, t, f = x.shape
-    if u != 32:
-        raise ValueError(f"{_WHAT} kernel takes 32 channels, got {u}")
+    if u != KERNEL_U:
+        raise ValueError(f"{_WHAT} kernel takes {KERNEL_U} channels, got "
+                         f"{u}")
     lib = load_library()
 
-    def taps(w):  # (U, U, 3, 3) -> (tap = 3 * dt + df, U_in, U_out) bf16
-        return w.detach().to(torch.bfloat16).permute(2, 3, 1, 0).reshape(
-            9, u, u).contiguous()
-
-    w1p, w2p = taps(w1), taps(w2)
+    wp = _common.pack_b(torch.cat([tap_weights(w1), tap_weights(w2)]).to(
+        torch.bfloat16))
     vecs = [v.detach().float().contiguous() for v in vecs]
     out = torch.empty_like(x, memory_format=_common.CL)
     _common.launch(lib.lass_residual_conv_block, x.device, _WHAT,
-                   x.data_ptr(), *_common.nhwc_strides(x), w1p.data_ptr(),
-                   w2p.data_ptr(), *[v.data_ptr() for v in vecs],
-                   out.data_ptr(), *_common.nhwc_strides(out), batch, t, f, u)
+                   x.data_ptr(), *_common.nhwc_strides(x), wp.data_ptr(),
+                   *[v.data_ptr() for v in vecs], out.data_ptr(),
+                   *_common.nhwc_strides(out), batch, t, f, u)
     LAUNCHES += 1
     return out
 

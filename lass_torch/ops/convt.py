@@ -9,9 +9,17 @@ conv: CUDA kernel and plain version.
 
 W is torch's ConvTranspose2d weight (C_in, C_out, 2, 2); the TPU kernel's
 ``w_pair`` carries the frequency tap j in its output fold slots instead.
-On a CUDA tensor it launches ``lass_torch/csrc/convt.cu`` (bfloat16) or
+On a CUDA tensor it launches ``lass_torch/csrc/convt.cu`` (bfloat16, C_in
+64 or 128, C_out 32 or 64: the decoder's two fused up-samplings) or
 raises; on a CPU tensor it runs ``act_convT_plain``. Eval only: no
-backward, as in the JAX package. What bounds the kernel is in its source.
+backward, as in the JAX package.
+
+The kernel is persistent: each warpgroup keeps both time phases' weights
+resident in shared memory (``phase_weights``, packed by
+``_common.pack_b``), walks 64-position input tiles through a cp.async
+ring, and writes each phase's 64 x 2 C_out product, one contiguous run of
+output row 2t + i, in 16-byte stores. It is bound by memory; its design
+and numbers are in its source and PERF.md.
 """
 from __future__ import annotations
 
@@ -23,6 +31,10 @@ from lass_torch.ops import _common
 # number of kernel launches since the last reset (the CPU path never adds)
 LAUNCHES = 0
 _WHAT = "fused act+convT"
+# the widths the kernel is built for (its weights, ring and stages fill a
+# block's shared memory at 128 -> 64)
+KERNEL_CIN = (64, 128)
+KERNEL_COUT = (32, 64)
 
 
 def act_convT_plain(x, inv, shift, beta, w) -> torch.Tensor:
@@ -37,6 +49,14 @@ def act_convT_plain(x, inv, shift, beta, w) -> torch.Tensor:
     z = F.leaky_relu(h + beta.to(dt)[:, :, None, None], slope)
     y = F.conv_transpose2d(z.float(), w.to(dt).float(), stride=2).to(dt)
     return y.contiguous(memory_format=_common.CL)
+
+
+def phase_weights(w: torch.Tensor) -> torch.Tensor:
+    """(C_in, C_out, 2, 2) -> (phase i, C_in, 2 C_out) with column
+    j * C_out + o: for each time phase i, the operand whose product with
+    a tile of positions is the output run of row 2t + i."""
+    cin, cout = w.shape[:2]
+    return w.detach().permute(2, 0, 3, 1).reshape(2, cin, 2 * cout)
 
 
 def _check(x, inv, shift, beta, w) -> None:
@@ -61,22 +81,22 @@ def _launch(x, inv, shift, beta, w) -> torch.Tensor:
     _common.require_bf16_rows(_WHAT, [x])
     batch, cin, t, f = x.shape
     cout = w.shape[1]
-    if cin % 16 or cout % 16:
-        raise ValueError(f"{_WHAT} kernel needs C_in and C_out multiples of "
-                         f"16, got {cin} -> {cout}")
+    if cin not in KERNEL_CIN or cout not in KERNEL_COUT:
+        raise ValueError(f"{_WHAT} kernel takes C_in in {KERNEL_CIN} and "
+                         f"C_out in {KERNEL_COUT}, got {cin} -> {cout}")
     lib = load_library()
     dt = x.dtype
     # the affine constants rounded to the activation dtype, as float32
     inv, shift, beta = (v.detach().to(dt).float().contiguous()
                         for v in (inv, shift, beta))
-    # (C_in, C_out, i, j) -> (C_in, 4 * C_out), column (2i + j) * C_out + o
-    wp = w.detach().to(torch.bfloat16).permute(0, 2, 3, 1).reshape(
-        cin, 4 * cout).contiguous()
+    wp = _common.pack_b(phase_weights(w).to(torch.bfloat16))
     out = torch.empty((batch, cout, 2 * t, 2 * f), dtype=dt, device=x.device,
                       memory_format=_common.CL)
     _common.launch(lib.lass_act_convt, x.device, _WHAT, x.data_ptr(),
-                   inv.data_ptr(), shift.data_ptr(), beta.data_ptr(),
-                   wp.data_ptr(), out.data_ptr(), batch, t, f, cin, cout)
+                   *_common.nhwc_strides(x), inv.data_ptr(),
+                   shift.data_ptr(), beta.data_ptr(), wp.data_ptr(),
+                   out.data_ptr(), *_common.nhwc_strides(out), batch, t, f,
+                   cin, cout)
     LAUNCHES += 1
     return out
 

@@ -23,7 +23,7 @@ from lass_tpu.ops.folded import (
     unfold_freq)
 from lass_tpu.ops.pallas_convt import fused_act_convT as jax_convT
 from lass_torch.convert.from_jax import _conv_w
-from lass_torch.ops import convt
+from lass_torch.ops import _common, convt
 
 
 @pytest.mark.parametrize("s_in,cin,cout,t,f", [(1, 32, 16, 6, 8),
@@ -103,3 +103,69 @@ def test_convt_wrapper_errors(rng):
     with torch.no_grad():  # the same call is fine without grad
         assert convt.fused_act_convT(x, vec, vec, beta, w).shape == (
             1, 4, 8, 8)
+
+
+def test_convt_phase_weights_round_trip(rng):
+    """The kernel's two per-phase operands: phase i is C_in x 2 C_out with
+    column j * C_out + o, so its product with a tile is one contiguous run
+    of output row 2t + i; packed by pack_b and unpacked exactly."""
+    cin, cout = 128, 64
+    w = torch.from_numpy(rng.randn(cin, cout, 2, 2).astype(np.float32))
+    ph = convt.phase_weights(w)
+    assert ph.shape == (2, cin, 2 * cout)
+    for i in range(2):
+        for j in range(2):
+            assert torch.equal(ph[i, :, j * cout:(j + 1) * cout],
+                               w[:, :, i, j])
+    packed = _common.pack_b(ph.to(torch.bfloat16))
+    taps, kk, nb = packed.shape[:3]
+    back = packed.permute(0, 1, 3, 5, 2, 4).reshape(taps, 16 * kk, 8 * nb)
+    assert torch.equal(back, ph.to(torch.bfloat16))
+
+
+def test_convt_kernel_refuses_what_it_does_not_take(rng):
+    """The checks of the CUDA path, which run before the kernel is built:
+    widths outside C_in {64, 128} x C_out {32, 64}, float32 activations,
+    rows off 16 bytes."""
+    def call(x, cout):
+        cin = x.shape[1]
+        return convt._launch(x, torch.ones(cin), torch.zeros(cin),
+                             torch.zeros(x.shape[0], cin),
+                             torch.zeros(cin, cout, 2, 2))
+
+    def act(c):
+        return torch.from_numpy(rng.randn(1, c, 3, 5).astype(
+            np.float32)).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+
+    with pytest.raises(ValueError, match="C_in in"):
+        call(act(32), 32)
+    with pytest.raises(ValueError, match="C_out in"):
+        call(act(64), 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        call(act(64).float(), 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(act(72)[:, 1:65], 32)
+
+
+@pytest.mark.parametrize("t,f", [(1, 7), (3, 5)])
+def test_convt_plain_matches_pallas_at_schedule_edges(rng, t, f):
+    """T = 1 and 3 and F off the kernel's 64-position tile, on the logical
+    layout (fold 1)."""
+    b, cin, cout = 2, 16, 8
+    x = rng.randn(b, t, f, cin).astype(np.float32)
+    inv = (rng.randn(cin) * 0.5).astype(np.float32)
+    shift = (rng.randn(cin) * 0.1).astype(np.float32)
+    beta = (rng.randn(b, cin) * 0.1).astype(np.float32)
+    wt = (rng.randn(2, 2, cout, cin) * 0.1).astype(np.float32)
+
+    got = convt.fused_act_convT(
+        torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(inv),
+        torch.from_numpy(shift), torch.from_numpy(beta), _conv_w(wt))
+    e = jnp.asarray(_convT_fold_embedding(1))
+    w_pair = jnp.einsum("rjq,kjoc->krcqo", e, jnp.asarray(wt)[::-1]
+                        ).reshape(2, cin, 2 * cout)[::-1]
+    ref = jax_convT(jnp.asarray(x), jnp.asarray(inv), jnp.asarray(shift),
+                    jnp.asarray(beta), w_pair, interpret=True)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(unfold_freq(ref, 2)), atol=2e-5)

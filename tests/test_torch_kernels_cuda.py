@@ -162,6 +162,74 @@ def test_convt_matches_plain_on_card(rng, cin, cout, t, f):
     _close_bf16(got, ref)
 
 
+def _maybe_batch_view(rng, b, c, t, f, view):
+    """(b, c, t, f) channels_last bf16 on the card; with ``view``, every
+    second batch of a tensor twice as large (a batch stride and an offset
+    that are not a contiguous tensor's, as the wrappers accept for b=1)."""
+    x = _card(rng, 2 * b if view else b, c, t, f, cl=True)
+    return x[1::2] if view else x
+
+
+# B4 at the edges of its persistent schedule: T = 1, 2 and 3 (every halo
+# row is padding), F off its 62-frequency strip, F smaller than one strip,
+# the serving F = 512 (which 62 does not divide) at a short T, one batch
+# (fewer columns than warpgroups), and a one-batch view.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,f,view", [
+    (2, 1, 100, False), (2, 2, 512, False), (1, 3, 40, False),
+    (2, 37, 100, False), (1, 9, 62, False), (3, 5, 63, False),
+    (1, 11, 70, True)])
+def test_conv_block_schedule_edges_on_card(rng, b, t, f, view):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from lass_torch.ops import convblock
+
+    _strict_float32()
+    u = 32
+    x = _maybe_batch_view(rng, b, u, t, f, view)
+    w1, w2 = (_card(rng, u, u, 3, 3, scale=(9 * u) ** -0.5) for _ in range(2))
+    vecs = [1 + 0.1 * _card(rng, b, u), 0.1 * _card(rng, b, u),
+            1 + 0.1 * _card(rng, b, u), 0.1 * _card(rng, b, u)]
+    before = convblock.LAUNCHES
+    with torch.no_grad():
+        got = convblock.fused_residual_conv_block(x, w1, w2, *vecs)
+        torch.cuda.synchronize()
+        ref = convblock.residual_conv_block_plain(x, w1, w2, *vecs)
+    assert convblock.LAUNCHES == before + 1
+    _close_bf16(got, ref, ulps=2)
+
+
+# B5 at both serving widths and the edges of its schedule: T = 1, 2 and 3,
+# F off its 64-position tile and smaller than one tile, one batch, and
+# one-batch views.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,t,f,view", [
+    (2, 128, 64, 1, 100, False), (2, 64, 32, 2, 20, False),
+    (1, 64, 32, 3, 512, False), (1, 128, 64, 5, 37, False),
+    (2, 64, 32, 7, 65, False), (1, 64, 32, 6, 33, True),
+    (1, 128, 64, 4, 130, True), (2, 128, 32, 3, 70, False),
+    (2, 64, 64, 3, 70, False)])
+def test_convt_schedule_edges_on_card(rng, b, cin, cout, t, f, view):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from lass_torch.ops import convt
+
+    _strict_float32()
+    x = _maybe_batch_view(rng, b, cin, t, f, view)
+    inv = 1 + 0.1 * _card(rng, cin)
+    shift = 0.1 * _card(rng, cin)
+    beta = 0.1 * _card(rng, b, cin)
+    w = _card(rng, cin, cout, 2, 2, scale=cin ** -0.5)
+    before = convt.LAUNCHES
+    with torch.no_grad():
+        got = convt.fused_act_convT(x, inv, shift, beta, w)
+        torch.cuda.synchronize()
+        ref = convt.act_convT_plain(x, inv, shift, beta, w)
+    assert convt.LAUNCHES == before + 1
+    assert got.shape == (b, cout, 2 * t, 2 * f)
+    _close_bf16(got, ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cout", [1, 2])
 def test_head_mask_matches_plain_on_card(rng, cout):
