@@ -26,6 +26,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    waveform held against the default configuration's. Every path runs
    with the launch counts reset just before and read just after, and each
    forward must launch exactly its configuration's kernels;
+4b. evaluation, int8 and chunked serving with the served weights: a
+   synthetic DCASE set (EVAL_ROWS rows of 10 s, 16 captions,
+   ``lass_torch.data.synth.make_synth_eval_set``) through
+   ``DCASEEvaluator`` at batch EVAL_BATCH in bf16, default configuration
+   and A (each forward's kernels counted; clips/s with the host's loading
+   apart); the int8 gate: ``DCASEEvaluator.calibrate`` then the evaluator
+   in float32, within INT8_GATE_DB of the float32 float run on every
+   metric; the B=16 x 10 s bf16 int8 forward against the float one,
+   default and A; the int8 conv route (``lass_torch.ops.quant``) at each
+   conv shape of that forward, exact against a float64 conv and timed
+   beside cuDNN's bf16 conv, and its chunk size at the widest shape; a
+   CHUNK_SECONDS clip through ``separate_long`` on the card against the
+   host stitch of the same forward, float32, within 1e-5;
 5. the default weights in float32, B=2 x 1 s, on the card and on the CPU;
    configuration A in bf16, B=1 x 1 s, on the card and on the CPU (the
    kernels' plain versions there);
@@ -55,6 +68,7 @@ every other measured number, and chiprun_out/chip_smoke.json holds them
 all as one JSON object.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -105,6 +119,15 @@ BF16_ULP = 2.0 ** -7
 # two bf16 forwards that round at different places differ by about what
 # bf16 costs against float32 (tests/test_torch_resunet.py)
 BF16_FORWARD_REL = 5e-2
+# phase 4b: the synthetic eval set, its batch, the int8 quality gate
+# (tests/test_dcase.py's), the chunked clip, the int8 product's chunk sizes
+# tried at the widest conv
+EVAL_ROWS = 48
+EVAL_BATCH = 16
+INT8_GATE_DB = 0.1
+CHUNK_SECONDS = 60.0
+CHUNK_SWEEP = (2 ** 26, 2 ** 28, 2 ** 30)
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 # clips of 10 s per train step in phase 7, fixed after measuring the step's
 # peak memory on an 80 GB H100 (PERF.md)
 TRAIN_BATCH = 16
@@ -600,6 +623,305 @@ def serve_fused(sep, default_outputs):
     return out
 
 
+def run_evaluator(sep, evaluator, config, label):
+    """Phase 4b: one pass of the evaluator, launch counts reset before and
+    read after; each forward must launch its configuration's kernels."""
+    batches = -(-len(evaluator.eval_list) // evaluator.batch_size)
+    reset_kernel_counts()
+    start = time.perf_counter()
+    sisdr, sdri, sdr = evaluator(sep)
+    seconds = time.perf_counter() - start
+    launched = kernel_counts()
+    expect = {name: batches * PER_FORWARD[config].get(name, 0)
+              for name, *_ in KERNELS}
+    if launched != expect:
+        raise AssertionError(f"evaluator, {label}: launched {launched}, "
+                             f"expected {expect}")
+    if not all(math.isfinite(v) for v in (sisdr, sdri, sdr)):
+        raise AssertionError(f"evaluator, {label}: metrics {sisdr, sdri, sdr}")
+    timing = evaluator.timing
+    row = {"sisdr": sisdr, "sdri": sdri, "sdr": sdr, "seconds": seconds,
+           "clips_per_s": len(evaluator.eval_list) / seconds,
+           "host_load_s": timing["load_s"], "separate_s": timing["separate_s"],
+           "metrics_s": timing["metrics_s"],
+           "host_share": (timing["load_s"] + timing["metrics_s"]) / seconds,
+           "launches": launched}
+    log(f"evaluator, {label}: SDR {sdr:.4f}, SDRi {sdri:.4f}, SI-SDR "
+        f"{sisdr:.4f}; {row['clips_per_s']:.1f} clips/s over "
+        f"{len(evaluator.eval_list)} clips ({seconds:.3f} s: host loading "
+        f"and mixing {timing['load_s']:.3f} s, captions + separation "
+        f"{timing['separate_s']:.3f} s, metrics {timing['metrics_s']:.3f} s)")
+    return row
+
+
+def int8_conv_shapes(model):
+    """The (input shape, weight shape) of every int8 conv of one B=16 x 10 s
+    forward of a calibrated quantized ``model``, with its count."""
+    import torch
+
+    from lass_torch.ops import quant
+
+    shapes = {}
+
+    def record(_, args):
+        key = (tuple(args[0].shape), tuple(args[1].weight.shape))
+        shapes[key] = shapes.get(key, 0) + 1
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"mixture": 0.1 * torch.randn(16, 1, 160000, generator=gen,
+                                          device="cuda"),
+             "condition": torch.randn(16, 512, generator=gen, device="cuda")}
+    hooks = [m.register_forward_pre_hook(record)
+             for m in quant.quant_layers(model)]
+    try:
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def time_int8_route(shapes, seed=9, iters=5, reps=3):
+    """Phase 4b: the int8 conv route (quantize, im2col + torch._int_mm,
+    dequantize) at each shape, bf16 in and out, channels_last as in the
+    quantized model, its product alone, and cuDNN's bf16 conv at the same
+    shape and layout (not the same function: context).
+    The int32 product at two batch items must equal a float64 conv of the
+    same int8 values, rounded (every partial sum is an integer below 2^27,
+    so the rounding only undoes an FFT or Winograd algorithm's error).
+    Returns rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from lass_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for (xs, ws), n in sorted(shapes.items(), key=lambda kv: -kv[0][0][3]):
+        b, c, h, w = xs
+        o, _, k, _ = ws
+        x = torch.randn(*xs, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wt = (k * k * c) ** -0.5 * torch.randn(*ws, generator=gen,
+                                               device="cuda")
+        scale = x.float().abs().amax(dim=(0, 2, 3)) / 127.0
+        kq, sw = quant.quantize_weight(wt * scale[None, :, None, None])
+        xq = quant.quantize_act(x, scale)
+        with torch.inference_mode():
+            got = quant.int8_conv_int32(xq[:2], kq)
+            ref = F.conv2d(xq[:2].double(), kq.double(), padding=k // 2)
+            if not torch.equal(got.permute(0, 3, 1, 2),
+                               ref.round().to(torch.int32)):
+                raise AssertionError(f"int8 product disagrees at {xs}, {ws}")
+            wb = wt.to(torch.bfloat16)
+            calls = {
+                "route": lambda: quant.conv_int8(x, None, scale,
+                                                 packed=(kq, sw)),
+                "product": lambda: quant.int8_conv_int32(xq, kq),
+                "cudnn_bf16": lambda: F.conv2d(x, wb, padding=k // 2)}
+            runs = {name: [] for name in calls}
+            for name in ("cudnn_bf16", "route", "product", "route",
+                         "cudnn_bf16"):
+                runs[name].append(cuda_ms(calls[name], iters, 2, reps))
+        m = b * h * w
+        bytes_ms = (2 * m * (c + o) + o * c * k * k) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * o * c * k * k / INT8_OPS_PER_S * 1e3
+        row = {"input": list(xs), "weight": list(ws), "per_forward": n,
+               "ms": min(runs["route"]), "product_ms": min(runs["product"]),
+               "cudnn_bf16_ms": min(runs["cudnn_bf16"]),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        rows.append(row)
+        log(f"int8 conv route {c}->{o} k{k} at {b}x{h}x{w} (x{n} per "
+            f"forward): {row['ms'] * 1e3:.1f} us (product alone "
+            f"{row['product_ms'] * 1e3:.1f} us), bound "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}); cuDNN bf16 "
+            f"conv (context) {row['cudnn_bf16_ms'] * 1e3:.1f} us")
+        del x, xq, got, ref, calls
+    return rows
+
+
+def chunk_sweep(shape, seed=10, iters=5):
+    """Phase 4b: the int8 route at the widest conv with each CHUNK_SWEEP
+    value of ``quant.CHUNK_ELEMENTS`` (im2col elements per product call),
+    in turns; the module's value is restored."""
+    import torch
+
+    from lass_torch.ops import quant
+
+    (xs, ws) = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*xs, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(*ws, generator=gen, device="cuda") * 0.05
+    scale = x.float().abs().amax(dim=(0, 2, 3)) / 127.0
+    packed = quant.quantize_weight(wt * scale[None, :, None, None])
+    kept = quant.CHUNK_ELEMENTS
+    times = {}
+    try:
+        with torch.inference_mode():
+            for chunk in CHUNK_SWEEP + CHUNK_SWEEP[::-1]:
+                quant.CHUNK_ELEMENTS = chunk
+                t = cuda_ms(lambda: quant.conv_int8(x, None, scale,
+                                                    packed=packed), iters)
+                times[chunk] = min(times.get(chunk, t), t)
+    finally:
+        quant.CHUNK_ELEMENTS = kept
+    log(f"int8 route at {xs} by im2col elements per product call: "
+        + ", ".join(f"2^{c.bit_length() - 1}: {t:.3f} ms"
+                    for c, t in times.items()))
+    return {str(c): t for c, t in times.items()}
+
+
+def eval_int8_chunked(sep, cfg, build_dir):
+    """Phase 4b (module docstring). Returns its results and the launches
+    of its evaluator, int8 and chunked paths."""
+    import numpy as np
+    import torch
+
+    from lass_torch.data.synth import make_synth_eval_set
+    from lass_torch.evaluation.dcase import DCASEEvaluator, SeparationInference
+    from lass_torch.models.chunk import ChunkConfig, chunk_inference
+    from lass_torch.models.resunet import CONFIGS, ResUNet30, build_model
+
+    phase_start = time.perf_counter()
+    out, launches = {}, {name: 0 for name, *_ in KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    def server(config="default", quantize=False, dtype=None):
+        if dtype is None:
+            model = build_model(cfg, quantize=quantize, **CONFIGS[config])
+        else:
+            model = ResUNet30(compute_dtype=dtype, quantize=quantize,
+                              **CONFIGS[config])
+        model.load_state_dict(sep.model.state_dict())
+        return SeparationInference(model, sep.query_encoder, device="cuda")
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        start = time.perf_counter()
+        csv_path = make_synth_eval_set(root, num_rows=EVAL_ROWS, seconds=10.0)
+        log(f"synthetic eval set: {EVAL_ROWS} rows of 10 s, "
+            f"{time.perf_counter() - start:.1f} s to write")
+
+        def evaluator():
+            return DCASEEvaluator(16000, csv_path, root, EVAL_BATCH)
+
+        # bf16: the served default model and config A; a first pass warms
+        # the caption cache and cuDNN, the second is reported
+        for config in ("default", "A"):
+            s = sep if config == "default" else server(config)
+            run_evaluator(s, evaluator(), config, f"{config} bf16 (warm-up)")
+            out[f"eval_{config}_bf16"] = row = run_evaluator(
+                s, evaluator(), config, f"{config} bf16")
+            add(row["launches"])
+            del s
+        torch.cuda.empty_cache()
+
+        # the int8 gate, float32 (TF32 is off since phase 1)
+        f32 = server(dtype=torch.float32)
+        out["eval_default_f32"] = ref = run_evaluator(
+            f32, evaluator(), "default", "default float32")
+        add(ref["launches"])
+        q32 = server(quantize=True, dtype=torch.float32)
+        ev = evaluator()
+        start = time.perf_counter()
+        ev.calibrate(q32)
+        calib_s = time.perf_counter() - start
+        out["eval_default_f32_int8"] = q = run_evaluator(
+            q32, ev, "default", "default float32 int8")
+        add(q["launches"])
+        delta = {k: q[k] - ref[k] for k in ("sisdr", "sdri", "sdr")}
+        out["int8_delta_db"] = delta
+        out["int8_calibrate_s"] = calib_s
+        log(f"int8 - float, float32, {EVAL_ROWS} clips: {delta} dB (limit "
+            f"{INT8_GATE_DB}); calibrate (3 batches + pack) {calib_s:.2f} s")
+        if not max(abs(v) for v in delta.values()) < INT8_GATE_DB:
+            raise AssertionError(f"int8 is {delta} dB from float")
+        del q32
+        torch.cuda.empty_cache()
+
+        # the bf16 int8 forward against the float one, B=16 x 10 s
+        forwards = {}
+        for config in ("default", "A"):
+            qs = server(config, quantize=True)
+            evaluator().calibrate(qs)
+            reset_kernel_counts()
+            time_forward(qs.model, iters=1)
+            counts = kernel_counts()
+            expect = {name: 4 * PER_FORWARD[config].get(name, 0)
+                      for name, *_ in KERNELS}  # 3 warm-up + 1 timed
+            if counts != expect:
+                raise AssertionError(f"int8 {config} forward launched "
+                                     f"{counts}, expected {expect}")
+            add(counts)
+            fs = sep if config == "default" else server(config)
+            runs = {"float": [], "int8": []}
+            for name in ("float", "int8", "int8", "float"):
+                model = fs.model if name == "float" else qs.model
+                runs[name].append(time_forward(model, iters=5)[0])
+            forwards[config] = {k: min(v) for k, v in runs.items()}
+            log(f"forward B=16 x 10 s bf16, config {config}: float "
+                f"{forwards[config]['float']:.2f} ms, int8 "
+                f"{forwards[config]['int8']:.2f} ms")
+            if config == "default":
+                shapes = int8_conv_shapes(qs.model)
+            del qs, fs
+            torch.cuda.empty_cache()
+        out["int8_forward_ms"] = forwards
+        out["int8_route"] = rows = time_int8_route(shapes)
+        out["int8_route_per_forward_ms"] = totals = {
+            key: sum(r["per_forward"] * r[key] for r in rows)
+            for key in ("ms", "product_ms", "cudnn_bf16_ms", "bound_ms")}
+        log(f"int8 route per default forward ({sum(shapes.values())} convs): "
+            f"{totals['ms']:.2f} ms (products alone {totals['product_ms']:.2f}"
+            f" ms), bound {totals['bound_ms']:.3f} ms; cuDNN bf16 at the same "
+            f"convs {totals['cudnn_bf16_ms']:.2f} ms")
+        widest = max(shapes, key=lambda s: s[0][0] * s[0][2] * s[0][3])
+        out["int8_chunk_sweep_ms"] = chunk_sweep(widest)
+        torch.cuda.empty_cache()
+
+    # a long clip in windows, on the card, against the host stitch
+    rng = np.random.RandomState(11)
+    length = int(CHUNK_SECONDS * 16000)
+    t = np.arange(length, dtype=np.float32) / 16000
+    mix = (0.2 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(length)
+           ).astype(np.float32)[None, None]
+    cond = f32.query_encoder.get_query_embed("text", text=["a 440 hertz tone"])
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got = f32.separate_long(mix, cond)
+    chunk_s = time.perf_counter() - start
+    counts = kernel_counts()
+    nl, nc, nr, window = ChunkConfig().samples()
+    groups = -(-(int(np.ceil((length - window) / nc)) + 1) // 16)
+    if counts["apply_complex_mask_ri"] != groups or sum(counts.values()) != \
+            groups:
+        raise AssertionError(f"separate_long launched {counts}")
+    add(counts)
+    with torch.inference_mode():
+        ref = chunk_inference(lambda d: f32.model(d)["waveform"],
+                              torch.from_numpy(mix).cuda(), cond,
+                              ChunkConfig(), 16)
+    err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    out["chunked"] = {"seconds_of_audio": CHUNK_SECONDS, "s": chunk_s,
+                      "rel_err_vs_host_stitch": err}
+    log(f"separate_long, {CHUNK_SECONDS:.0f} s clip float32 on the card: "
+        f"{chunk_s * 1e3:.1f} ms; against the host stitch rel err {err:.3e} "
+        f"(limit 1e-5)")
+    if not (got.shape == (1, length) and err <= 1e-5):
+        raise AssertionError("separate_long disagrees with the host stitch")
+    del f32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"phase 4b: {out['phase_s']:.1f} s")
+    return out, launches
+
+
 def card_vs_cpu(sep, config="default", dtype="float32", batch=2, seed=5,
                 limit=1e-4):
     """Phase 5: the served weights in ``config`` and ``dtype``, B x 1 s, on
@@ -1054,6 +1376,12 @@ def main():
                    fused_vs_default_rel_err={c: e for c, (_, e) in
                                              fused.items()},
                    launches_phase4=dict(launches))
+
+    # 4b. evaluation, int8 and chunked serving
+    evaluation, eval_launches = eval_int8_chunked(sep, cfg, build_dir)
+    for name, n in eval_launches.items():
+        launches[name] += n
+    RESULTS.update(evaluation=evaluation, launches_phase4b=eval_launches)
 
     # 5. card vs CPU
     RESULTS["f32_card_vs_cpu_rel_err"] = card_vs_cpu(sep)

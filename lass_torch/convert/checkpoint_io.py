@@ -119,17 +119,26 @@ def save_ss_checkpoint(model: torch.nn.Module, path: str) -> None:
 
 
 def load_ss_model(configs, checkpoint_path: str, query_encoder=None,
-                  device: str = "cuda"):
+                  device: str = "cuda", quantize: bool = False,
+                  config: str = "default"):
     """Build the separator from a config (dict or Config) and a checkpoint;
     returns a SeparationInference on ``device`` with the CLAP query encoder
-    (a random-weight one unless ``query_encoder`` is given)."""
+    (a random-weight one unless ``query_encoder`` is given).
+
+    config: the serving configuration, a key of
+    ``lass_torch.models.resunet.CONFIGS`` ("default", "A", "B"); every one
+    loads the same checkpoint. quantize: the int8 eval path
+    (``lass_torch/ops/quant.py``); calibrate before separating."""
     from lass_torch.config import Config, _build
     from lass_torch.evaluation.dcase import SeparationInference
     from lass_torch.models.query_encoder import CLAPQueryEncoder
-    from lass_torch.models.resunet import build_model
+    from lass_torch.models.resunet import CONFIGS, build_model
 
+    if config not in CONFIGS:
+        raise ValueError(f"config must be one of {sorted(CONFIGS)}, got "
+                         f"{config!r}")
     cfg = configs if isinstance(configs, Config) else _build(Config, configs)
-    model = build_model(cfg)
+    model = build_model(cfg, quantize=quantize, **CONFIGS[config])
     load_separator(model, checkpoint_path)
     if query_encoder is None:
         query_encoder = CLAPQueryEncoder(device=device)

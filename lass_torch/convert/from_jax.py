@@ -12,6 +12,11 @@ The inverse of the JAX package's torch -> JAX converters
                  -> the port's fused ``film.weight`` (sum C_i, cond), rows
                  in the same order
 - RoBERTa:       fused QKV -> HF query/key/value
+- int8 state:    the ``quant`` collection (amax per input channel, at
+                 ``<block>/<name>_in``) and the ``qpack`` collection
+                 (``<block>/<name>_q`` = {kq (kh, kw, I, O) int8, sw, bc})
+                 -> the buffers of the port's QConv ``<block>.<name>_q``
+                 (amax; kq (O, I, kh, kw), sw, bc)
 
 Inputs are nested dicts of numpy arrays (``{'params', 'batch_stats'}`` for
 the separator), as the JAX package holds them or as an npz pack from
@@ -137,4 +142,33 @@ def clap_text_state_dict_from_jax(params: Dict[str, Any], num_layers: int
                                       prefix="text_branch.")
     _linear(out, "text_projection.0", params["text_projection"]["fc1"])
     _linear(out, "text_projection.2", params["text_projection"]["fc2"])
+    return out
+
+
+def quant_state_from_jax(quant: Dict[str, Any],
+                         qpack: Dict[str, Any] = None) -> StateDict:
+    """lass_tpu ResUNet30(quantize=True)'s ``quant`` collection, and its
+    ``qpack`` collection if given, -> the QConv buffers of the port's
+    ResUNet30(quantize=True), for ``lass_torch.ops.quant.load_quant_state``.
+    """
+    out: StateDict = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            if isinstance(value, dict) and "kq" in value:
+                layer = f"{prefix}{key}"
+                out[f"{layer}.kq"] = torch.from_numpy(np.transpose(
+                    np.asarray(value["kq"], np.int8), (3, 2, 0, 1)).copy())
+                out[f"{layer}.sw"] = _t(value["sw"])
+                out[f"{layer}.bc"] = _t(value["bc"])
+            elif isinstance(value, dict):
+                walk(value, f"{prefix}{key}.")
+            elif key.endswith("_in"):
+                out[f"{prefix}{key[:-len('_in')]}_q.amax"] = _t(value)
+            else:
+                raise KeyError(f"unexpected int8 state {prefix}{key}")
+
+    walk(quant, "")
+    if qpack is not None:
+        walk(qpack, "")
     return out

@@ -106,3 +106,46 @@ def write_train_config(
             f"    wire_dtype: {wire_dtype}\n"
         )
     return path
+
+
+def make_synth_eval_set(
+    out_dir: str,
+    num_rows: int = 48,
+    seconds: float = 10.0,
+    num_captions: int = 16,
+    sample_rate: int = 16000,
+    seed: int = 0,
+) -> str:
+    """A DCASE-style eval set where no validation data is at hand: one
+    source wav (a tone with two harmonics) and one noise wav (coloured
+    noise) per row, an SNR from -5 to 5 dB, and ``num_captions`` distinct
+    captions; written under ``out_dir`` with its CSV (source, noise, snr,
+    caption), whose path is returned. For ``DCASEEvaluator(eval_indexes=
+    <csv>, audio_dir=out_dir)``."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sample_rate)
+    t = np.arange(n, dtype=np.float32) / sample_rate
+    freqs = np.geomspace(120.0, 3000.0, num_captions)
+    rows = []
+    for i in range(num_rows):
+        k = i % num_captions
+        phase = float(rng.uniform(0, 2 * np.pi))
+        tone = sum(np.sin(2 * np.pi * h * freqs[k] * t + phase,
+                          dtype=np.float32) / h for h in (1, 2, 3))
+        noise = rng.standard_normal(n).astype(np.float32)
+        width = int(rng.integers(1, 8))  # box-blur width that colours it
+        noise = np.convolve(noise, np.ones(width, np.float32) / width,
+                            mode="same").astype(np.float32)
+        write_wav(os.path.join(out_dir, f"source_{i:03d}.wav"),
+                  (0.2 * tone).astype(np.float32), sample_rate)
+        write_wav(os.path.join(out_dir, f"noise_{i:03d}.wav"),
+                  0.2 * noise, sample_rate)
+        rows.append((f"source_{i:03d}", f"noise_{i:03d}",
+                     int(rng.integers(-5, 6)),
+                     f"a {freqs[k]:.0f} hertz tone with its harmonics"))
+    path = os.path.join(out_dir, "eval.csv")
+    with open(path, "w") as f:
+        f.write("source,noise,snr,caption\n")
+        f.writelines(f"{s},{z},{snr},{c}\n" for s, z, snr, c in rows)
+    return path

@@ -21,7 +21,14 @@ block), ``fused_convT`` (``fused_act_convT`` for decoder_block5/6's
 up-sampling), ``fuse_head`` (``apply_head_mask``: after_conv and the mask
 in one kernel, one input channel only). With any of them on, the UNet's
 activations are ``torch.channels_last`` in memory (logical shapes and
-state dicts unchanged).
+state dicts unchanged), and so with ``quantize``.
+
+``quantize=True`` gives every residual block the int8 eval path of
+``lass_torch/ops/quant.py`` (the JAX package's ``quantize`` switch at
+``freq_fold=1``, its CLI's path); it needs a calibration before an eval
+forward (``SeparationInference.calibrate``). Blocks that a fused kernel
+takes stay on it in bf16, as in the JAX package. The state dict is
+unchanged.
 """
 from __future__ import annotations
 
@@ -67,15 +74,18 @@ class ResUNet30Base(nn.Module):
     def __init__(self, input_channels: int = 1, output_channels: int = 1,
                  K: int = 3, freq_bins: int = 513, momentum: float = 0.01,
                  sparse_conv: bool = False, fused_conv_block: bool = False,
-                 fused_convT: bool = False, fuse_head: bool = False):
+                 fused_convT: bool = False, fuse_head: bool = False,
+                 quantize: bool = False):
         super().__init__()
         fused = sparse_conv or fused_conv_block or fused_convT
         # the fused head takes one input channel (lass_tpu's rule)
         self.fuse_head = fuse_head and input_channels == 1 and K == 3
-        # the fused kernels take channels_last activations
-        self.channels_last = fused or self.fuse_head
+        # the fused kernels take channels_last activations, and the int8
+        # route reads and writes NHWC (lass_torch/ops/quant.py)
+        self.channels_last = fused or self.fuse_head or quantize
         block_options = dict(sparse_conv=sparse_conv,
-                             fused_conv_block=fused_conv_block)
+                             fused_conv_block=fused_conv_block,
+                             quantize=quantize)
         self.bn0 = BatchNorm(freq_bins, momentum, dim=3)
         self.pre_conv = Conv2d(input_channels, 32, (1, 1))
         enc = [("encoder_block1", 32, 32, (2, 2)),
@@ -91,7 +101,8 @@ class ResUNet30Base(nn.Module):
                                                momentum=momentum,
                                                **block_options)
             else:
-                block = EncoderBlockRes1B(cin, cout, down, momentum=momentum)
+                block = EncoderBlockRes1B(cin, cout, down, momentum=momentum,
+                                          quantize=quantize)
             self.add_module(name, block)
         dec = [("decoder_block1", 384, 384, (1, 2)),
                ("decoder_block2", 384, 384, (2, 2)),
@@ -106,7 +117,8 @@ class ResUNet30Base(nn.Module):
                                                fused_convT=fused_convT,
                                                **block_options)
             else:
-                block = DecoderBlockRes1B(cin, cout, up, momentum=momentum)
+                block = DecoderBlockRes1B(cin, cout, up, momentum=momentum,
+                                          quantize=quantize)
             self.add_module(name, block)
         self.after_conv = Conv2d(32, output_channels * K, (1, 1))
 
@@ -206,7 +218,8 @@ class ResUNet30(nn.Module):
                  window_size: int = 1024, hop_size: int = 160,
                  compute_dtype: torch.dtype = torch.float32,
                  sparse_conv: bool = False, fused_conv_block: bool = False,
-                 fused_convT: bool = False, fuse_head: bool = False):
+                 fused_convT: bool = False, fuse_head: bool = False,
+                 quantize: bool = False):
         super().__init__()
         self.output_channels = output_channels
         self.K = K
@@ -216,7 +229,7 @@ class ResUNet30(nn.Module):
         self.base = ResUNet30Base(
             input_channels, output_channels, K, self.stft_cfg.freq_bins,
             sparse_conv=sparse_conv, fused_conv_block=fused_conv_block,
-            fused_convT=fused_convT, fuse_head=fuse_head)
+            fused_convT=fused_convT, fuse_head=fuse_head, quantize=quantize)
 
     def forward(self, input_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -239,6 +252,8 @@ class ResUNet30(nn.Module):
                 h, after.weight, after.bias, real_in, imag_in, audio_length,
                 self.stft_cfg, self.output_channels)}
         out = self.base(x, film)[:, :, :origin_t]
+        if self.base.channels_last:  # the mask kernel reads unit-stride rows
+            out = out.contiguous()
         waveform = apply_mask_and_reconstruct(
             out, real_in, imag_in, audio_length, self.stft_cfg,
             self.output_channels, self.K)
@@ -247,7 +262,8 @@ class ResUNet30(nn.Module):
 
 def build_model(cfg, **switches) -> ResUNet30:
     """ResUNet30 from a Config (``lass_torch.config``); ``switches`` are
-    the fused-conv keywords (``CONFIGS``)."""
+    ResUNet30's keywords: the fused-conv ones (``CONFIGS``) and
+    ``quantize``."""
     if cfg.model.model_type != "ResUNet30":
         raise NotImplementedError(cfg.model.model_type)
     if cfg.model.compute_dtype not in _DTYPES:

@@ -5,6 +5,12 @@ dict of (B, C) float32 tensors from the fused projection
 (``lass_torch/models/film.py``); each is added after BatchNorm and before
 the leaky ReLU. Module and parameter names are the reference torch names,
 so a reference checkpoint's ``base.*`` keys load as they are.
+
+``ConvBlockRes(quantize=True)`` runs its convs in int8 in eval
+(``lass_torch/ops/quant.py``; the JAX package's ``_call_quant``): one
+``QConv`` per conv (``conv1_q``, ``conv2_q``, ``shortcut_q``) holds the
+calibrated input scales and the pack as non-persistent buffers, so the
+state dict is the float block's.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch.nn as nn
 
 from lass_torch.nn.layers import (
     BatchNorm, Conv2d, ConvTranspose2d, avg_pool, leaky_relu)
+from lass_torch.ops.quant import QConv
 
 
 def _film(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -25,7 +32,7 @@ def _film(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
 class ConvBlockRes(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int] = (3, 3),
-                 momentum: float = 0.01):
+                 momentum: float = 0.01, quantize: bool = False):
         super().__init__()
         self.bn1 = BatchNorm(in_channels, momentum)
         self.conv1 = Conv2d(in_channels, out_channels, kernel_size,
@@ -36,13 +43,26 @@ class ConvBlockRes(nn.Module):
         self.has_shortcut = in_channels != out_channels
         if self.has_shortcut:
             self.shortcut = Conv2d(in_channels, out_channels, (1, 1))
+        self.quantize = quantize
+        if quantize:
+            self.conv1_q = QConv(in_channels)
+            self.conv2_q = QConv(out_channels)
+            if self.has_shortcut:
+                self.shortcut_q = QConv(in_channels)
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Conv ``name`` in float, or through its QConv in quantized eval."""
+        conv = getattr(self, name)
+        if self.quantize and not self.training:
+            return getattr(self, f"{name}_q")(x, conv)
+        return conv(x)
 
     def forward(self, x: torch.Tensor, film: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-        h = self.conv1(leaky_relu(_film(self.bn1(x), film["beta1"])))
-        h = self.conv2(leaky_relu(_film(self.bn2(h), film["beta2"])))
+        h = self._conv("conv1", leaky_relu(_film(self.bn1(x), film["beta1"])))
+        h = self._conv("conv2", leaky_relu(_film(self.bn2(h), film["beta2"])))
         if self.has_shortcut:
-            return self.shortcut(x) + h
+            return self._conv("shortcut", x) + h
         return x + h
 
 

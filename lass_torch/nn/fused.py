@@ -21,6 +21,10 @@ Switches (all off by default, as in the JAX package):
   precedence where both are on.
 - ``fused_convT``: a decoder's bn1 + FiLM + leaky + 2x2 transposed conv is
   one ``fused_act_convT`` launch.
+
+With ``quantize`` as well, a block that a fused kernel takes stays on it
+(bf16), as the JAX package's fused paths return before its int8 branch
+(``lass_tpu/ops/folded.py``); the others run ``ConvBlockRes``'s int8 path.
 """
 from __future__ import annotations
 
@@ -52,12 +56,16 @@ class FusedConvBlockRes(ConvBlockRes):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int] = (3, 3),
                  momentum: float = 0.01, sparse_conv: bool = False,
-                 fused_conv_block: bool = False):
-        super().__init__(in_channels, out_channels, kernel_size, momentum)
+                 fused_conv_block: bool = False, quantize: bool = False):
         three = tuple(kernel_size) == (3, 3)
-        self.sparse_conv = sparse_conv and three
-        self.fused_conv_block = (fused_conv_block and three
-                                 and not self.has_shortcut)
+        sparse_conv = sparse_conv and three
+        fused_conv_block = (fused_conv_block and three
+                            and in_channels == out_channels)
+        # a block a fused kernel takes in eval has no int8 path
+        super().__init__(in_channels, out_channels, kernel_size, momentum,
+                         quantize and not (sparse_conv or fused_conv_block))
+        self.sparse_conv = sparse_conv
+        self.fused_conv_block = fused_conv_block
 
     def forward(self, x: Sources, film: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
