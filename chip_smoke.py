@@ -39,9 +39,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside cuDNN's bf16 conv, and its chunk size at the widest shape; a
    CHUNK_SECONDS clip through ``separate_long`` on the card against the
    host stitch of the same forward, float32, within 1e-5;
+4c. audio-queried serving: the CLAP audio tower (HTSAT-base, random
+   weights from seed 0) attached at 16 kHz to the served query encoder; 16
+   reference clips of 10 s through ``get_query_embed('audio')`` in float32
+   (shape, unit norms, distinct rows); their conditions separate 16
+   mixtures of 10 s in bf16, default and A, each forward launching exactly
+   its configuration's kernels; ``'hybird'`` at use_text_ratio 0.5 on a
+   seed whose coin picks audio and one that picks text (HYBRID_SEEDS), each
+   equal to its pure branch; CUDA-event times of the B=16 embed in parts
+   (resample, log-mel, HTSAT + projection) and of one 10 s audio-queried
+   request;
 5. the default weights in float32, B=2 x 1 s, on the card and on the CPU;
    configuration A in bf16, B=1 x 1 s, on the card and on the CPU (the
-   kernels' plain versions there);
+   kernels' plain versions there); the audio tower in float32, B=2 x 10 s,
+   on the card and on the CPU (embedding within 1e-4, log-mel within
+   1e-3 dB);
 6. times with CUDA events: the B=16 x 10 s bf16 forward of the default
    configuration, A and B, caption encoding, each kernel against its bound
    and its plain version at each serving shape, with a context call
@@ -54,10 +66,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ResUNet30 in bf16 on 10 s segments of a synthetic corpus with the full
    RoBERTa-base caption encoder, TRAIN_BATCH clips per step, 4 steps:
    finite losses, checkpoints at steps 1, 2 and 4, one B1 launch per
-   step's forward (the subprocess writes its launch counts); then a
-   resume from step 2 to 4 whose losses match the first run's within
+   step's forward and per eval batch (the subprocess writes its launch
+   counts); 7c: with ``--eval_indexes`` / ``--eval_audio_dir`` on
+   TRAIN_EVAL_ROWS synthetic rows, the eval hook fires at step 4 and
+   writes finite eval_SISDR / eval_SDRi / eval_SDR to metrics.jsonl; then
+   a resume from step 2 to 4 whose losses match the first run's within
    1e-5 relative; then the step-4 checkpoint serves one 10 s request
    through ``load_ss_model``;
+7b. hybrid training: an in-process ``Trainer`` with the phase-4c audio
+   tower, use_text_ratio 0.5, random_seed HYBRID_TRAIN_SEED (coins audio,
+   text, audio, text), the same model, batch and corpus, 4 steps: finite
+   losses, the audio tower run at steps 1 and 3 only, one B1 launch per
+   step; a resume from step 2 within 1e-5; steps/s;
 8. one float32 train step (TF32 off), B=2 x 1 s, from the same weights
    and batch on the card and on the CPU: loss within 1e-5 relative, grads
    and updated BN running statistics within 1e-4.
@@ -131,6 +151,14 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 # clips of 10 s per train step in phase 7, fixed after measuring the step's
 # peak memory on an 80 GB H100 (PERF.md)
 TRAIN_BATCH = 16
+# phase 4c: 'hybird' seeds whose coin picks audio and text at use_text_ratio
+# 0.5 (np.random.default_rng(seed).random() = 0.637 and 0.262)
+HYBRID_SEEDS = {"audio": 0, "text": 2}
+# phase 7b: train.random_seed whose per-step coins (seed * 1000003 + step,
+# steps 0-3) pick audio, text, audio, text
+HYBRID_TRAIN_SEED = 1
+# phase 7c: synthetic eval rows the training CLI's hook scores at step 4
+TRAIN_EVAL_ROWS = 16
 RESULTS = {}
 
 
@@ -922,6 +950,173 @@ def eval_int8_chunked(sep, cfg, build_dir):
     return out, launches
 
 
+def reference_clips(n=16, seconds=10.0, rate=16000, seed=12):
+    """n query clips: tones from 100 Hz to 4 kHz over noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    return np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.randn(len(t))
+                     for f in np.geomspace(100.0, 4000.0, n)]
+                    ).astype(np.float32)
+
+
+def audio_serving(sep):
+    """Phase 4c: HTSAT-base (random, seed 0) attached at 16 kHz; 16
+    reference clips of 10 s through get_query_embed('audio') in float32;
+    their conditions separate 16 mixtures of 10 s in bf16, default and A,
+    each forward launching exactly its configuration's kernels; 'hybird'
+    on a seed that picks audio and one that picks text; times with CUDA
+    events. Returns (results, launches)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lass_torch.audio.resample import resample
+    from lass_torch.dsp.mel import log_mel_spectrogram
+
+    phase_start = time.perf_counter()
+    launches = {name: 0 for name, *_ in KERNELS}
+    enc = sep.query_encoder
+    torch.manual_seed(0)
+    enc.attach_audio_encoder(sampling_rate=16000)
+    model = enc.audio_model
+    clips = reference_clips()
+    torch.cuda.reset_peak_memory_stats()
+    conds = enc.get_query_embed("audio", audio=clips)
+    peak = torch.cuda.max_memory_allocated()
+    norms = torch.linalg.vector_norm(conds, dim=-1)
+    gaps = (conds[:, None] - conds[None]).abs().amax(-1)
+    gaps += torch.eye(16, device=gaps.device)
+    log(f"audio conditions: {tuple(conds.shape)}, norms within "
+        f"{(norms - 1).abs().max().item():.2e} of 1, closest two rows "
+        f"{gaps.min().item():.3e} apart (max abs); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    if conds.shape != (16, 512) or not torch.isfinite(conds).all() or \
+            (norms - 1).abs().max() > 1e-5 or gaps.min() <= 1e-6:
+        raise AssertionError("bad audio conditions")
+
+    rng = np.random.RandomState(13)
+    mixtures = (0.1 * rng.randn(16, 1, 160000)).astype(np.float32)
+    waves = {}
+    for config in ("default", "A"):
+        server = sep if config == "default" else fused_server(sep, config)
+        reset_kernel_counts()
+        waves[config] = out = server.separate(mixtures, conds)
+        counts = kernel_counts()
+        expect = {name: PER_FORWARD[config].get(name, 0)
+                  for name, *_ in KERNELS}
+        if counts != expect:
+            raise AssertionError(f"audio-queried config {config} forward "
+                                 f"launched {counts}, expected {expect}")
+        if out.shape != (16, 1, 160000) or not np.isfinite(out).all():
+            raise AssertionError(f"bad audio-queried output ({config})")
+        for name, n in counts.items():
+            launches[name] += n
+        del server
+    ref = waves["default"].astype(np.float64)
+    fused_err = float(np.linalg.norm(waves["A"] - ref) / np.linalg.norm(ref))
+    log(f"audio-queried B=16 x 10 s bf16: default and A each launched their "
+        f"kernels; A vs default rel err {fused_err:.3e} (limit "
+        f"{BF16_FORWARD_REL})")
+    if fused_err > BF16_FORWARD_REL:
+        raise AssertionError("audio-queried config A disagrees with default")
+
+    captions = [f"reference sound {i}" for i in range(16)]
+    pure = {"audio": conds, "text": enc.get_query_embed("text",
+                                                        text=captions)}
+    hybrid = {}
+    for kind, seed in HYBRID_SEEDS.items():
+        got = enc.get_query_embed("hybird", audio=clips, text=captions,
+                                  use_text_ratio=0.5, seed=seed)
+        hybrid[kind] = (got - pure[kind]).abs().max().item()
+    log(f"'hybird' at use_text_ratio 0.5 against the pure branch its seed "
+        f"picks: max abs err {hybrid} (limit 1e-6)")
+    if max(hybrid.values()) > 1e-6:
+        raise AssertionError("'hybird' did not give its branch's embedding")
+
+    wave = torch.from_numpy(clips).cuda()
+    with torch.inference_mode():
+        wave48 = resample(wave, 16000, 48000)
+        parts = {
+            "resample_ms": cuda_ms(lambda: resample(wave, 16000, 48000), 10),
+            "log_mel_ms": cuda_ms(lambda: log_mel_spectrogram(
+                wave48, model.audio_branch.cfg.mel), 10),
+            "tower_ms": cuda_ms(lambda: model(wave48), 10)}
+        with FlopCounterMode(display=False) as flops:
+            model(wave48)
+    parts["htsat_projection_ms"] = parts["tower_ms"] - parts["log_mel_ms"]
+    parts["embed_ms"] = cuda_ms(
+        lambda: enc.get_query_embed("audio", audio=wave), 10)
+    parts["tower_gflop"] = flops.get_total_flops() / 1e9
+    parts["tower_tflop_per_s"] = (parts["tower_gflop"]
+                                  / parts["htsat_projection_ms"])
+    log(f"audio embed B=16 x 10 s float32: {parts['embed_ms']:.3f} ms "
+        f"(resample {parts['resample_ms']:.3f}, log-mel "
+        f"{parts['log_mel_ms']:.3f}, HTSAT + projection "
+        f"{parts['htsat_projection_ms']:.3f} = the tower "
+        f"{parts['tower_ms']:.3f} minus log-mel); the tower's matmuls and "
+        f"convs {parts['tower_gflop']:.1f} GFLOP (torch FlopCounterMode), "
+        f"{parts['tower_tflop_per_s']:.1f} TFLOP/s over HTSAT + projection")
+
+    one, mix1 = clips[:1], mixtures[:1]
+    reset_kernel_counts()
+    request_ms = cuda_ms(lambda: sep.separate(
+        mix1, enc.get_query_embed("audio", audio=one)), 10)
+    counts = kernel_counts()
+    if counts != {name: 13 * PER_FORWARD["default"].get(name, 0)
+                  for name, *_ in KERNELS}:  # 3 warm-up + 10 timed
+        raise AssertionError(f"audio requests launched {counts}")
+    for name, n in counts.items():
+        launches[name] += n
+    log(f"audio-queried request, one 10 s clip, default bf16: "
+        f"{request_ms:.3f} ms median (embed + separate, copy to the host)")
+    out = {"parts": parts, "request_ms": request_ms, "embed_peak_gib":
+           peak / 2 ** 30, "hybrid_max_abs_err": hybrid,
+           "configA_vs_default_rel_err": fused_err,
+           "closest_rows_max_abs": gaps.min().item(),
+           "phase_s": time.perf_counter() - phase_start}
+    log(f"phase 4c: {out['phase_s']:.1f} s")
+    return out, launches
+
+
+def audio_card_vs_cpu(enc, seed=14, limit=1e-4):
+    """Phase 5 for the audio tower: CLAPAudioEncoder at HTSAT-base width
+    with the phase-4c weights, float32 (TF32 off), B=2 x 10 s at 48 kHz,
+    on the card and on the CPU; the embedding as rel err, the log-mel as
+    max abs dB (limit 1e-3 dB, the CPU tests' bound against lass_tpu)."""
+    import numpy as np
+    import torch
+
+    from lass_torch.dsp.mel import log_mel_spectrogram
+    from lass_torch.models.clap.model import CLAPAudioEncoder
+
+    state = {k: v.detach().cpu()
+             for k, v in enc.audio_model.state_dict().items()}
+    cfg = enc.audio_model.audio_branch.cfg
+    rng = np.random.RandomState(seed)
+    t = np.arange(480000) / 48000
+    x = torch.from_numpy(np.stack([
+        0.3 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.randn(len(t)),
+        0.1 * rng.randn(len(t))]).astype(np.float32))
+    embeds, mels = [], []
+    for dev in ("cuda", "cpu"):
+        model = CLAPAudioEncoder(cfg)
+        model.load_state_dict(state)
+        model.to(dev).eval()
+        with torch.inference_mode():
+            mels.append(log_mel_spectrogram(x.to(dev), cfg.mel).cpu())
+            embeds.append(model(x.to(dev)).cpu().double())
+    err = ((embeds[0] - embeds[1]).norm() / embeds[1].norm()).item()
+    mel_db = (mels[0] - mels[1]).abs().max().item()
+    log(f"CLAP audio tower (HTSAT-base) float32 card vs CPU, B=2 x 10 s: "
+        f"rel err {err:.3e} (limit {limit}); log-mel max abs "
+        f"{mel_db:.3e} dB (limit 1e-3)")
+    if not (err <= limit and mel_db <= 1e-3):
+        raise AssertionError("the audio tower disagrees between card and CPU")
+    return {"rel_err": err, "log_mel_max_abs_db": mel_db}
+
+
 def card_vs_cpu(sep, config="default", dtype="float32", batch=2, seed=5,
                 limit=1e-4):
     """Phase 5: the served weights in ``config`` and ``dtype``, B x 1 s, on
@@ -1136,11 +1331,9 @@ def time_timetap():
             "launches": launches}, rows
 
 
-def time_train_steps(sep, batch, steps=5):
-    """Phase 6: train steps/s and peak memory of the bf16 train step at
-    the phase-7 shape (``batch`` clips of 10 s), the served weights, an
-    on-card batch; host clock around synchronised steps after 2 warm-up
-    steps."""
+def bf16_train_task(sep, batch):
+    """A bf16 AudioSepTask on the served weights, a generator and an
+    on-card batch of ``batch`` clips of 10 s with random conditions."""
     import torch
 
     from lass_torch.data.mixer import SegmentMixer
@@ -1159,6 +1352,55 @@ def time_train_steps(sep, batch, steps=5):
                                           device="cuda"),
             "condition": torch.randn(batch, 512, generator=gen,
                                      device="cuda")}
+    return task, gen, data
+
+
+def time_hybrid_steps(sep, batch, steps=5):
+    """Phase 6: the hybrid train step as the trainer runs it (the mix, the
+    'hybird' condition of the mixed segments, the premixed bf16 step) at
+    the phase-7 shape, host clock around synchronised steps after 2
+    warm-up steps, its audio draw and its text draw (HYBRID_SEEDS) apart;
+    steps/s at use_text_ratio 0.5 is two steps over their sum."""
+    import torch
+
+    task, gen, data = bf16_train_task(sep, batch)
+    enc = sep.query_encoder
+    captions = [f"training clip {i}" for i in range(batch)]
+
+    def step(seed):
+        mixtures, segments = task.mix(data["waveform"], gen)
+        cond = enc.get_query_embed("hybird", audio=segments[:, 0],
+                                   text=captions, use_text_ratio=0.5,
+                                   seed=seed)
+        return task.train_step_premixed({"mixture": mixtures,
+                                         "segment": segments,
+                                         "condition": cond.clone()})
+
+    out = {}
+    for kind, seed in HYBRID_SEEDS.items():
+        for _ in range(2):
+            step(seed)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(steps):
+            metrics = step(seed)
+        torch.cuda.synchronize()
+        out[f"{kind}_step_ms"] = (time.perf_counter() - start) / steps * 1e3
+        if not torch.isfinite(metrics["train_loss"]):
+            raise AssertionError(f"the timed hybrid {kind} step gave a "
+                                 f"non-finite loss")
+    out["steps_per_s"] = 2e3 / (out["audio_step_ms"] + out["text_step_ms"])
+    return out
+
+
+def time_train_steps(sep, batch, steps=5):
+    """Phase 6: train steps/s and peak memory of the bf16 train step at
+    the phase-7 shape (``batch`` clips of 10 s), the served weights, an
+    on-card batch; host clock around synchronised steps after 2 warm-up
+    steps."""
+    import torch
+
+    task, gen, data = bf16_train_task(sep, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
@@ -1176,13 +1418,15 @@ def time_train_steps(sep, batch, steps=5):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def run_train_cli(workspace, config, resume, counts_path, max_steps=4):
+def run_train_cli(workspace, config, resume, counts_path, max_steps=4,
+                  extra=()):
     """``python -m lass_torch.train`` in a subprocess on the card; returns
-    its metrics by step, its checkpoint steps and its kernel launches."""
+    its metrics by step (the train and eval records of a step merged), its
+    checkpoint steps and its kernel launches."""
     cmd = [sys.executable, "-m", "lass_torch.train", "--workspace",
            workspace, "--config_yaml", config, "--resume_checkpoint_path",
            resume, "--max_steps", str(max_steps), "--log_every", "1",
-           "--launch_counts", counts_path]
+           "--launch_counts", counts_path, *extra]
     start = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=600)
@@ -1192,8 +1436,10 @@ def run_train_cli(workspace, config, resume, counts_path, max_steps=4):
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     stem = os.path.splitext(os.path.basename(config))[0]
     sub = os.path.join("train", f"{stem},devices=1")
+    metrics = {}
     with open(os.path.join(workspace, "tf_logs", sub, "metrics.jsonl")) as f:
-        metrics = {r["step"]: r for r in map(json.loads, f)}
+        for record in map(json.loads, f):
+            metrics.setdefault(record["step"], {}).update(record)
     ckpt_dir = os.path.join(workspace, "checkpoints", sub)
     steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt_dir)
                    if n.endswith(".ckpt"))
@@ -1204,14 +1450,16 @@ def run_train_cli(workspace, config, resume, counts_path, max_steps=4):
 
 def train(sep, build_dir):
     """Phase 7: train full-width ResUNet30 (bf16, 10 s segments, the full
-    RoBERTa-base caption encoder) for 4 steps from a synthetic corpus,
+    RoBERTa-base caption encoder) for 4 steps from a synthetic corpus, with
+    the DCASE eval hook on TRAIN_EVAL_ROWS synthetic rows at step 4 (7c),
     resume from step 2 to step 4, then serve one 10 s request from the
     step-4 checkpoint. Returns (results, launches)."""
     import numpy as np
 
     from lass_torch.config import load_config
     from lass_torch.convert.checkpoint_io import load_ss_model
-    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.data.synth import (
+        make_synth_corpus, make_synth_eval_set, write_train_config)
 
     datafile = make_synth_corpus(os.path.join(build_dir, "train_corpus"),
                                  num_clips=4 * TRAIN_BATCH + 8,
@@ -1220,20 +1468,34 @@ def train(sep, build_dir):
         config = write_train_config(
             os.path.join(root, "config.yaml"), datafile,
             batch_size=TRAIN_BATCH, segment_seconds=10, num_workers=8,
-            save_step_frequency=2, compute_dtype="bfloat16")
+            save_step_frequency=2, compute_dtype="bfloat16",
+            evaluate_step_frequency=4)
+        eval_dir = os.path.join(root, "eval")
+        eval_csv = make_synth_eval_set(eval_dir, num_rows=TRAIN_EVAL_ROWS,
+                                       seconds=10.0)
         first = run_train_cli(os.path.join(root, "run"), config, "",
-                              os.path.join(root, "counts_run.json"))
+                              os.path.join(root, "counts_run.json"),
+                              extra=("--eval_indexes", eval_csv,
+                                     "--eval_audio_dir", eval_dir))
         metrics, steps, counts, ckpt_dir, seconds = first
         losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+        evals = {k: metrics[4].get(k) for k in ("eval_SISDR", "eval_SDRi",
+                                                "eval_SDR")}
         log(f"training, {TRAIN_BATCH} x 10 s per step: steps "
             f"{sorted(metrics)}, losses {losses}, checkpoints {steps}, "
-            f"launches {counts}, {seconds:.1f} s")
+            f"launches {counts}, {seconds:.1f} s; eval hook at step 4 on "
+            f"{TRAIN_EVAL_ROWS} rows: {evals}")
         if sorted(metrics) != [1, 2, 3, 4] or not np.isfinite(losses).all():
             raise AssertionError(f"training metrics are wrong: {metrics}")
+        if any(k != 4 and "eval_SDR" in r for k, r in metrics.items()) or \
+                not all(v is not None and math.isfinite(v)
+                        for v in evals.values()):
+            raise AssertionError(f"the eval hook's metrics: {metrics}")
         if steps != [1, 2, 4]:
             raise AssertionError(f"checkpoints at {steps}, not [1, 2, 4]")
         expect = {name: 0 for name, *_ in KERNELS}
-        expect["apply_complex_mask_ri"] = 4  # one per step's forward
+        # one per step's forward, and one per eval batch of 16
+        expect["apply_complex_mask_ri"] = 4 + -(-TRAIN_EVAL_ROWS // 16)
         if counts != expect:
             raise AssertionError(f"training launched {counts}, expected "
                                  f"{expect}")
@@ -1260,13 +1522,98 @@ def train(sep, build_dir):
         served = kernel_counts()
     launches = {name: counts[name] + r_counts[name] + served[name]
                 for name, *_ in KERNELS}
-    return {"losses": losses,
+    return {"losses": losses, "eval_hook": evals,
             "resumed_losses": [r_metrics[k]["train_loss"]
                                for k in sorted(r_metrics)],
             "resume_rel_err": max(rel.values()),
             "cli_steps_per_s": [metrics[k]["steps_per_sec"]
                                 for k in sorted(metrics)],
             "cli_seconds": [seconds, r_seconds]}, launches
+
+
+def hybrid_train(sep, build_dir):
+    """Phase 7b: an in-process ``Trainer`` (the CLI cannot hand it an
+    audio tower) on phase 7's corpus: full-width ResUNet30 in bf16,
+    TRAIN_BATCH clips of 10 s, the phase-4c HTSAT-base at 16 kHz,
+    use_text_ratio 0.5 and random_seed HYBRID_TRAIN_SEED (coins audio,
+    text, audio, text), 4 steps; then a resume from step 2. Returns
+    (results, launches)."""
+    import numpy as np
+    import torch
+
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.train.loop import Trainer
+
+    enc = sep.query_encoder
+    datafile = make_synth_corpus(os.path.join(build_dir, "train_corpus"),
+                                 num_clips=4 * TRAIN_BATCH + 8,
+                                 seconds_min=8.0, seconds_max=14.0, seed=0)
+    calls = []
+    hook = enc.audio_model.register_forward_hook(lambda *_: calls.append(1))
+    runs, launches = {}, {name: 0 for name, *_ in KERNELS}
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as root:
+            config = write_train_config(
+                os.path.join(root, "config.yaml"), datafile,
+                batch_size=TRAIN_BATCH, segment_seconds=10, num_workers=8,
+                save_step_frequency=2, compute_dtype="bfloat16",
+                use_text_ratio=0.5, random_seed=HYBRID_TRAIN_SEED)
+            resume = None
+            for name in ("run", "resumed"):
+                before = len(calls)
+                reset_kernel_counts()
+                trainer = Trainer(config, os.path.join(root, name),
+                                  resume_checkpoint_path=resume,
+                                  query_encoder=enc, device="cuda",
+                                  log_every=1)
+                start = time.perf_counter()
+                trainer.fit(max_steps=4)
+                seconds = time.perf_counter() - start
+                with open(os.path.join(trainer.tf_logs_dir,
+                                       "metrics.jsonl")) as f:
+                    metrics = {r["step"]: r for r in map(json.loads, f)}
+                runs[name] = dict(metrics=metrics, counts=kernel_counts(),
+                                  audio_calls=len(calls) - before,
+                                  seconds=seconds, timing=dict(trainer.timing))
+                for k, n in runs[name]["counts"].items():
+                    launches[k] += n
+                resume = trainer.ckpt.path(2)
+                del trainer
+                torch.cuda.empty_cache()
+    finally:
+        hook.remove()
+    first, again = runs["run"], runs["resumed"]
+    losses = [first["metrics"][k]["train_loss"] for k in sorted(first["metrics"])]
+    rel = {k: abs(again["metrics"][k]["train_loss"]
+                  - first["metrics"][k]["train_loss"])
+           / abs(first["metrics"][k]["train_loss"])
+           for k in sorted(again["metrics"])}
+    sps = [first["metrics"][k]["steps_per_sec"] for k in (2, 3, 4)]
+    log(f"hybrid training, {TRAIN_BATCH} x 10 s per step, use_text_ratio "
+        f"0.5: losses {losses}, audio-tower calls {first['audio_calls']} "
+        f"(steps 1 and 3), launches {first['counts']}, steps/s over steps "
+        f"2-4 {sps}, {first['seconds']:.1f} s; resumed from step 2: loss "
+        f"rel err {rel} (limit 1e-5), audio-tower calls "
+        f"{again['audio_calls']}, launches {again['counts']}")
+    if sorted(first["metrics"]) != [1, 2, 3, 4] or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"hybrid training metrics: {first['metrics']}")
+    if first["audio_calls"] != 2 or again["audio_calls"] != 1:
+        raise AssertionError("the hybrid coins did not pick audio at steps "
+                             "1 and 3")
+    for run, steps in ((first, 4), (again, 2)):
+        expect = {name: 0 for name, *_ in KERNELS}
+        expect["apply_complex_mask_ri"] = steps  # one per step's forward
+        if run["counts"] != expect:
+            raise AssertionError(f"hybrid training launched {run['counts']}")
+    if sorted(rel) != [3, 4] or max(rel.values()) > 1e-5:
+        raise AssertionError("the resumed hybrid run left the first one")
+    return {"losses": losses, "resume_rel_err": max(rel.values()),
+            "steps_per_s": sps, "median_steps_per_s": statistics.median(sps),
+            "seconds": [first["seconds"], again["seconds"]],
+            "timing": first["timing"],
+            "audio_calls": [first["audio_calls"], again["audio_calls"]]}, \
+        launches
 
 
 def train_step_card_vs_cpu(sep, batch=2, seed=7):
@@ -1383,8 +1730,16 @@ def main():
         launches[name] += n
     RESULTS.update(evaluation=evaluation, launches_phase4b=eval_launches)
 
+    # 4c. audio-queried serving (the CLAP audio tower)
+    audio, audio_launches = audio_serving(sep)
+    for name, n in audio_launches.items():
+        launches[name] += n
+    RESULTS.update(audio=audio, launches_phase4c=audio_launches)
+    torch.cuda.empty_cache()
+
     # 5. card vs CPU
     RESULTS["f32_card_vs_cpu_rel_err"] = card_vs_cpu(sep)
+    RESULTS["audio_tower_card_vs_cpu"] = audio_card_vs_cpu(sep.query_encoder)
     RESULTS["configA_bf16_card_vs_cpu_rel_err"] = card_vs_cpu(
         sep, "A", "bfloat16", batch=1, seed=6, limit=BF16_FORWARD_REL)
 
@@ -1433,16 +1788,29 @@ def main():
         f"{train_time['clips_per_s']:.1f} clips/s, peak memory "
         f"{train_time['peak_gib']:.2f} GiB")
     torch.cuda.empty_cache()
+    hybrid_time = time_hybrid_steps(sep, TRAIN_BATCH)
+    log(f"hybrid train step bf16, {TRAIN_BATCH} x 10 s (mix, 'hybird' "
+        f"condition, premixed step): audio draw "
+        f"{hybrid_time['audio_step_ms']:.1f} ms, text draw "
+        f"{hybrid_time['text_step_ms']:.1f} ms, "
+        f"{hybrid_time['steps_per_s']:.2f} steps/s at use_text_ratio 0.5")
+    torch.cuda.empty_cache()
     RESULTS.update(forward=forward, caption_ms=cap_ms, mask_kernels=masks,
                    fused_kernel_rows=rows, fused_kernel_totals=totals,
                    timetap=timetap, microbench_rows=timetap_rows,
-                   train_step=train_time)
+                   train_step=train_time, hybrid_train_step=hybrid_time)
 
     # 7. training through the CLI, resume, and serving its checkpoint
     training, train_launches = train(sep, build_dir)
     for name, n in train_launches.items():
         launches[name] += n
     RESULTS.update(training=training, launches_phase7=train_launches)
+
+    # 7b. hybrid training (text and audio conditioning) and its resume
+    hybrid, hybrid_launches = hybrid_train(sep, build_dir)
+    for name, n in hybrid_launches.items():
+        launches[name] += n
+    RESULTS.update(hybrid_training=hybrid, launches_phase7b=hybrid_launches)
 
     # 8. the float32 train step, card vs CPU
     RESULTS["train_step_card_vs_cpu_rel_err"] = train_step_card_vs_cpu(sep)

@@ -1,6 +1,13 @@
-"""Windowed-sinc polyphase resampling on the host (torchaudio.functional.
-resample semantics: hann-windowed sinc, lowpass_filter_width=6,
-rolloff=0.99); the numpy path of lass_tpu/audio/resample.py."""
+"""Windowed-sinc polyphase resampling (torchaudio.functional.resample
+semantics: hann-windowed sinc, lowpass_filter_width=6, rolloff=0.99),
+counterpart of lass_tpu/audio/resample.py. Two paths share one filter
+bank:
+
+- ``resample_np``: numpy, on the host (the data pipeline);
+- ``resample``: on tensors, one strided ``F.conv1d`` (cuDNN on the card,
+  in IEEE float32 as the JAX package runs it at ``Precision.HIGHEST``);
+  the audio query path resamples on the card with it.
+"""
 from __future__ import annotations
 
 import functools
@@ -8,6 +15,10 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lass_torch.utils.precision import ieee_float32
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,4 +68,35 @@ def resample_np(x: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:
     out = np.einsum("bst,pt->bsp", strided, kernel)  # (B, steps, phases)
     out = out.reshape(xf.shape[0], -1)[:, : _output_length(length, orig_freq,
                                                            new_freq)]
+    return out.reshape(lead + (out.shape[-1],))
+
+
+# made outside inference mode whatever the caller's mode (as the STFT
+# window in dsp/stft.py)
+@functools.lru_cache(maxsize=16)
+def _kernel_on(orig_freq: int, new_freq: int, device: torch.device
+               ) -> torch.Tensor:
+    kernel, _, _ = resample_kernel(orig_freq, new_freq)
+    with torch.inference_mode(False):
+        return torch.from_numpy(kernel)[:, None, :].to(device)
+
+
+def resample(x: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
+    """Device path. x: (..., L) -> (..., ceil(L * new / orig)) float32, on
+    x's device: the filter bank as an (L, 1, taps) conv weight at stride M
+    gives the L output phases of each input step."""
+    if orig_freq == new_freq:
+        return x
+    kernel, _, orig = resample_kernel(orig_freq, new_freq)
+    width = (kernel.shape[1] - orig) // 2
+    lead = x.shape[:-1]
+    length = x.shape[-1]
+    xf = x.reshape(-1, 1, length).float()
+    num_steps = -(-length // orig)
+    xp = F.pad(xf, (width, width + num_steps * orig - length))
+    with ieee_float32():
+        out = F.conv1d(xp, _kernel_on(orig_freq, new_freq, xf.device),
+                       stride=orig)  # (N, phases, steps)
+    out = out.transpose(1, 2).reshape(xf.shape[0], -1)
+    out = out[:, :_output_length(length, orig_freq, new_freq)]
     return out.reshape(lead + (out.shape[-1],))

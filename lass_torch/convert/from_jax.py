@@ -12,6 +12,11 @@ The inverse of the JAX package's torch -> JAX converters
                  -> the port's fused ``film.weight`` (sum C_i, cond), rows
                  in the same order
 - RoBERTa:       fused QKV -> HF query/key/value
+- LayerNorm:     scale/bias -> weight/bias
+- HTSAT:         ``layers_{i}_blocks_{j}`` -> ``layers.{i}.blocks.{j}``,
+                 ``mel_conv1d`` kernel (k, I, O) -> Conv1d (O, I, k), the
+                 fusion blocks' Dense kernels (I, O) -> 1x1 Conv1d (O, I, 1)
+                 (1D fusion) or Conv2d (O, I, 1, 1) (2D fusion)
 - int8 state:    the ``quant`` collection (amax per input channel, at
                  ``<block>/<name>_in``) and the ``qpack`` collection
                  (``<block>/<name>_q`` = {kq (kh, kw, I, O) int8, sw, bc})
@@ -142,6 +147,97 @@ def clap_text_state_dict_from_jax(params: Dict[str, Any], num_layers: int
                                       prefix="text_branch.")
     _linear(out, "text_projection.0", params["text_projection"]["fc1"])
     _linear(out, "text_projection.2", params["text_projection"]["fc2"])
+    return out
+
+
+def _ln(out: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _fusion_model(out: StateDict, prefix: str, p: Dict, s: Dict,
+                  dims: int) -> None:
+    """AFF / iAFF branches: Sequential(Conv, BN, ReLU, Conv, BN), the
+    global one after an AdaptiveAvgPool (indices shifted by one)."""
+    for name, p_branch in p.items():
+        first = 1 if name.startswith("global") else 0
+        s_branch = s[name]
+        for k, idx in (("fc1", first), ("fc2", first + 3)):
+            w = np.asarray(p_branch[k]["kernel"]).T  # (O, I)
+            out[f"{prefix}.{name}.{idx}.weight"] = _t(
+                w.reshape(w.shape + (1,) * dims))
+            out[f"{prefix}.{name}.{idx}.bias"] = _t(p_branch[k]["bias"])
+        for k, idx in (("bn1", first + 1), ("bn2", first + 4)):
+            _bn(out, f"{prefix}.{name}.{idx}", p_branch[k], s_branch[k])
+
+
+def swin_block_from_jax(out: StateDict, prefix: str, p: Dict[str, Any]
+                        ) -> None:
+    """One lass_tpu SwinBlock's params -> the port's SwinBlock keys."""
+    _ln(out, f"{prefix}.norm1", p["norm1"])
+    _linear(out, f"{prefix}.attn.qkv", p["attn"]["qkv"])
+    _linear(out, f"{prefix}.attn.proj", p["attn"]["proj"])
+    out[f"{prefix}.attn.relative_position_bias_table"] = _t(
+        p["attn"]["relative_position_bias_table"])
+    _ln(out, f"{prefix}.norm2", p["norm2"])
+    _linear(out, f"{prefix}.mlp.fc1", p["mlp_fc1"])
+    _linear(out, f"{prefix}.mlp.fc2", p["mlp_fc2"])
+
+
+def patch_merging_from_jax(out: StateDict, prefix: str, p: Dict[str, Any]
+                           ) -> None:
+    _ln(out, f"{prefix}.norm", p["norm"])
+    _linear(out, f"{prefix}.reduction", p["reduction"])
+
+
+def htsat_state_dict_from_jax(variables: Dict[str, Any],
+                              depths=(2, 2, 12, 2)) -> StateDict:
+    """``{'params', 'batch_stats'}`` of lass_tpu HTSAT -> the port's HTSAT
+    state dict (the reference's ``audio_branch.*`` names without the
+    prefix), fusion keys included when present: the exact inverse of
+    ``convert_htsat`` in lass_tpu/convert/torch_to_jax.py."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: StateDict = {}
+    _bn(out, "bn0", params["bn0"], stats["bn0"])
+    _conv(out, "patch_embed.proj", params["patch_embed_proj"])
+    _ln(out, "patch_embed.norm", params["patch_embed_norm"])
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            swin_block_from_jax(out, f"layers.{i}.blocks.{j}",
+                                params[f"layers_{i}_blocks_{j}"])
+        if i < len(depths) - 1:
+            patch_merging_from_jax(out, f"layers.{i}.downsample",
+                                   params[f"layers_{i}_downsample"])
+    _ln(out, "norm", params["norm"])
+    _conv(out, "tscam_conv", params["tscam_conv"])
+    if "mel_conv1d" in params:  # 1D fusion
+        out["mel_conv1d.0.weight"] = _t(np.transpose(
+            np.asarray(params["mel_conv1d"]["kernel"]), (2, 1, 0)))
+        out["mel_conv1d.0.bias"] = _t(params["mel_conv1d"]["bias"])
+        _bn(out, "mel_conv1d.1", params["mel_conv1d_bn"],
+            stats["mel_conv1d_bn"])
+    if "mel_conv2d" in params:  # 2D fusion
+        _conv(out, "patch_embed.mel_conv2d", params["mel_conv2d"])
+    if "fusion_model" in params:
+        two_d = "mel_conv2d" in params
+        _fusion_model(out, "patch_embed.fusion_model" if two_d
+                      else "fusion_model", params["fusion_model"],
+                      stats["fusion_model"], 2 if two_d else 1)
+    return out
+
+
+def clap_audio_state_dict_from_jax(variables: Dict[str, Any],
+                                   depths=(2, 2, 12, 2)) -> StateDict:
+    """lass_tpu CLAPAudioEncoder variables -> the port's CLAPAudioEncoder
+    state dict (``audio_branch.*``, ``audio_projection.{0,2}``): the exact
+    inverse of ``convert_clap_audio_encoder``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    branch = htsat_state_dict_from_jax(
+        {"params": params["audio_branch"],
+         "batch_stats": stats["audio_branch"]}, depths)
+    out: StateDict = {f"audio_branch.{k}": v for k, v in branch.items()}
+    _linear(out, "audio_projection.0", params["audio_projection"]["fc1"])
+    _linear(out, "audio_projection.2", params["audio_projection"]["fc2"])
     return out
 
 

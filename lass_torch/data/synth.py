@@ -86,6 +86,8 @@ def write_train_config(
     compute_dtype: str = "bfloat16",
     use_text_ratio: float = 1.0,
     wire_dtype: str = "float32",
+    evaluate_step_frequency: int = 10000,
+    random_seed: int = 1234,
 ) -> str:
     """Minimal train-config YAML (the surface of
     config/audiosep_base.yaml) pointed at a synthetic corpus."""
@@ -104,6 +106,8 @@ def write_train_config(
             f"    batch_size_per_device: {batch_size}\n"
             f"    save_step_frequency: {save_step_frequency}\n"
             f"    wire_dtype: {wire_dtype}\n"
+            f"    evaluate_step_frequency: {evaluate_step_frequency}\n"
+            f"    random_seed: {random_seed}\n"
         )
     return path
 

@@ -44,12 +44,13 @@ every checkpoint, is the float model's.
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lass_torch.utils.precision import ieee_float32
 
 # safety margin on the calibrated scales (the JAX package's
 # LASS_TPU_QUANT_MARGIN, default 1.0)
@@ -158,18 +159,6 @@ def conv_int8(x: torch.Tensor, w: Optional[torch.Tensor],
     return _finish(y, bias, x, out_dtype or x.dtype)
 
 
-@contextlib.contextmanager
-def _ieee_float32() -> Iterator[None]:
-    """cuDNN convs in full float32 (no TF32), so that a float32 reference
-    on the card is the CPU's."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
-
-
 class QConv(nn.Module):
     """Int8 state of one conv call site (the JAX package's
     ``amax_observer`` + ``qconv``): the calibrated amax of the input
@@ -217,7 +206,7 @@ class QConv(nn.Module):
             y = _int8_nhwc(x, self.kq, self.sw, scale)
             self.bc = None
             if self.bias_correction:
-                with _ieee_float32():
+                with ieee_float32():
                     y_f = F.conv2d(x.float(), conv.weight.float(), None,
                                    padding=conv.padding)
                 self.bc = (y_f.permute(0, 2, 3, 1) - y).mean(dim=(0, 1, 2))

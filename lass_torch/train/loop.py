@@ -2,20 +2,31 @@
 
 Workspace layout (``get_dirs``), datafile dataset and batch loader, the
 separator, mixer, loss, AMSGrad optimizer and LR schedule, the frozen CLAP
-caption encoder, checkpoints at step 1 and every ``save_step_frequency``
+query encoder, checkpoints at step 1 and every ``save_step_frequency``
 steps, metrics to ``metrics.jsonl`` and resume.
 
 A host thread (``datamodule.BatchLoader``) decodes and crops batches a few
 ahead; the main thread encodes the wire format, uploads, embeds the
-captions and runs the step. The loader thread is closed and joined on
+conditions and runs the step. The loader thread is closed and joined on
 every way out of ``fit``. Resume restores model, optimizer, scheduler,
 step and the mixer's generator, and skips the batches already trained on
 without decoding them, so a resumed run sees the batches and mixes an
 uninterrupted run would.
 
-Not here yet (later slices): data parallelism over several cards,
-hybrid or audio conditioning (``use_text_ratio < 1`` needs the CLAP audio
-tower), and the periodic DCASE evaluation hook.
+Conditioning: with ``model.use_text_ratio`` 1 (the recipe) the captions;
+below 1 ('hybird', which needs the query encoder's audio tower,
+``attach_audio_encoder``) the batch is mixed first and each step draws
+one coin, seeded by the step (``random_seed * 1000003 + step``, so a
+resumed run draws what the uninterrupted one drew): the captions, or the
+mixed segments through the audio tower (reference audiosep.py:77-88
+embeds the segments after the mixer); then the premixed step.
+
+``fit(eval_hook=)`` runs a hook (``make_dcase_eval_hook``: the DCASE
+evaluator on the training model) every ``train.evaluate_step_frequency``
+steps; its metrics go to ``metrics.jsonl`` and the statistics file, its
+time to ``timing['eval']``, and the steps/s windows leave it out.
+
+Not here yet (a later slice): data parallelism over several cards.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ import logging
 import os
 import pathlib
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +50,7 @@ from lass_torch.tasks.audiosep import AudioSepTask
 from lass_torch.train.checkpoint import CheckpointManager, restore_file
 from lass_torch.train.optim import build_optimizer
 from lass_torch.utils.logging import MetricsLogger, create_logging
+from lass_torch.utils.statistics import StatisticsContainer
 
 LOG_EVERY = 50  # steps between metric records (and step 1)
 
@@ -90,13 +102,15 @@ class Trainer:
         self.device = torch.device(device)
         if cfg.model.query_net != "CLAP":
             raise NotImplementedError(cfg.model.query_net)
-        if cfg.model.use_text_ratio < 1.0:
+        self.use_text_ratio = cfg.model.use_text_ratio
+        if self.use_text_ratio < 1.0 and (
+                query_encoder is None or query_encoder.audio_model is None):
             raise NotImplementedError(
                 "use_text_ratio < 1 conditions on audio too, which needs "
-                "the CLAP audio tower (HTSAT); lass_torch has the text "
-                "tower only")
+                "the CLAP audio tower: pass a query encoder after its "
+                "attach_audio_encoder()")
         (self.checkpoints_dir, self.logs_dir, self.tf_logs_dir,
-         _stats_dir) = get_dirs(workspace, filename, config_yaml, 1)
+         stats_dir) = get_dirs(workspace, filename, config_yaml, 1)
         create_logging(self.logs_dir)
         logging.info("config: %s", cfg)
         self.log_every = log_every
@@ -128,26 +142,43 @@ class Trainer:
             self.checkpoints_dir,
             save_step_frequency=cfg.train.save_step_frequency)
         self.metrics = MetricsLogger(self.tf_logs_dir)
+        self.statistics = StatisticsContainer(
+            os.path.join(stats_dir, "statistics.pkl"))
         if resume_checkpoint_path:
             path = _resume_path(resume_checkpoint_path)
             restore_file(path, self.task, self.generator)
             logging.info("resumed from %s at step %d", path, self.task.step)
         # wall-clock split of fit(): waiting for the loader, host->device
-        # upload + caption embedding, the step, metric reads, saves
+        # upload + conditioning (hybrid: + the mix), the step, metric
+        # reads, saves, the eval hook
         self.timing = {"data_wait": 0.0, "prepare": 0.0, "step": 0.0,
-                       "metrics_fetch": 0.0, "save_block": 0.0}
+                       "metrics_fetch": 0.0, "save_block": 0.0, "eval": 0.0}
 
     def _prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Upload and condition one batch: text-only -> {'waveform',
+        'condition'} for ``train_step``; hybrid -> {'mixture', 'segment',
+        'condition'} for ``train_step_premixed``."""
         at = batch["audio_text"]
         waveform = torch.from_numpy(_encode_wire(
             at["waveform"], self.cfg.train.wire_dtype)).to(self.device)
-        condition = self.query_encoder.get_query_embed("text",
-                                                       text=at["text"])
-        return {"waveform": waveform, "condition": condition.clone()}
+        if self.use_text_ratio >= 1.0:
+            condition = self.query_encoder.get_query_embed(
+                "text", text=at["text"])
+            return {"waveform": waveform, "condition": condition.clone()}
+        mixtures, segments = self.task.mix(waveform, self.generator)
+        seed = self.cfg.train.random_seed * 1000003 + self.task.step
+        condition = self.query_encoder.get_query_embed(
+            "hybird", text=at["text"], audio=segments[:, 0],
+            use_text_ratio=self.use_text_ratio, seed=seed)
+        return {"mixture": mixtures, "segment": segments,
+                "condition": condition.clone()}
 
-    def fit(self, max_steps: Optional[int] = None) -> AudioSepTask:
+    def fit(self, max_steps: Optional[int] = None,
+            eval_hook: Optional[Callable] = None) -> AudioSepTask:
         """Train until ``max_steps`` (or train.early_stop_steps) updates
-        have been done in all; returns the task."""
+        have been done in all; returns the task. ``eval_hook(trainer,
+        step)`` -> dict of metrics runs every
+        ``train.evaluate_step_frequency`` steps."""
         cfg, timing, pc = self.cfg, self.timing, time.perf_counter
         stop_at = cfg.train.early_stop_steps
         if max_steps is not None:
@@ -166,7 +197,10 @@ class Trainer:
                 data = self._prepare(batch)
                 timing["prepare"] += pc() - t0
                 t0 = pc()
-                metrics = self.task.train_step(data, self.generator)
+                if "waveform" in data:
+                    metrics = self.task.train_step(data, self.generator)
+                else:
+                    metrics = self.task.train_step_premixed(data)
                 step = self.task.step
                 steps_since += 1
                 timing["step"] += pc() - t0
@@ -182,6 +216,17 @@ class Trainer:
                     self.metrics.log(step, {"train_loss": loss,
                                             "grad_norm": gnorm,
                                             "steps_per_sec": sps})
+                if eval_hook is not None and \
+                        step % cfg.train.evaluate_step_frequency == 0:
+                    t0 = pc()
+                    eval_metrics = eval_hook(self, step)
+                    if eval_metrics:
+                        self.metrics.log(step, eval_metrics)
+                        self.statistics.append(step, eval_metrics, "test")
+                        logging.info("eval @ %d: %s", step, eval_metrics)
+                    seconds = pc() - t0
+                    timing["eval"] += seconds
+                    t_last += seconds  # keep the steps/s windows eval-free
                 if self.ckpt.should_save(step):
                     t0 = pc()
                     self.ckpt.save_async(step, self.task, self.generator)
@@ -194,3 +239,25 @@ class Trainer:
                                          for k, v in timing.items()})
         return self.task
 
+
+
+def make_dcase_eval_hook(eval_indexes: str, audio_dir: str,
+                         batch_size: int = 16) -> Callable:
+    """An eval hook for ``Trainer.fit``: the DCASE evaluator
+    (``lass_torch.evaluation.dcase``, 16 kHz) on the training model and
+    query encoder -> {'eval_SISDR', 'eval_SDRi', 'eval_SDR'}. The next
+    train step puts the model back in train mode."""
+    from lass_torch.evaluation.dcase import (
+        DCASEEvaluator, SeparationInference)
+
+    evaluator = DCASEEvaluator(eval_indexes=eval_indexes,
+                               audio_dir=audio_dir, batch_size=batch_size)
+
+    def hook(trainer: Trainer, step: int) -> Dict[str, float]:
+        model = SeparationInference(trainer.task.model,
+                                    trainer.query_encoder,
+                                    device=str(trainer.device))
+        sisdr, sdri, sdr = evaluator(model)
+        return {"eval_SISDR": sisdr, "eval_SDRi": sdri, "eval_SDR": sdr}
+
+    return hook
