@@ -80,7 +80,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    step; a resume from step 2 within 1e-5; steps/s;
 8. one float32 train step (TF32 off), B=2 x 1 s, from the same weights
    and batch on the card and on the CPU: loss within 1e-5 relative, grads
-   and updated BN running statistics within 1e-4.
+   and updated BN running statistics within 1e-4;
+9. the precomputed-STFT variants at full width (VARIANT_*): a synthetic
+   corpus of 32 clips of 10-12 s; recipes in process, then ``python -m
+   lass_torch.precompute_stfts --mode compute_stfts`` on the card (windows
+   256, 512 and 2048 at hop 160, two files of 16 x 10 s), the stored
+   segment STFT against a fresh one on the card, the device part (mix +
+   STFT bank) timed with CUDA events apart from the copy to the host, the
+   npz write and the load of a stored file; ``MultiSTFTResUNet30`` in bf16
+   on the first file, launching exactly one B1 and no other kernel, B1
+   against its plain version and timed at the inputs this forward hands it
+   ((16, 1001, 256), spectrum rows 257 floats apart), the eval forward
+   timed; the same weights in float32, B=2 x 10 s, card vs CPU within
+   1e-4; ``python -m lass_torch.train_multistft`` for 4 steps of each
+   variant (multistft, negquery): finite losses, checkpoints 1, 2 and 4,
+   one B1 launch per step; in process the task restored from step 2
+   repeats the step-3 loss exactly, and one val step; each variant's bf16
+   train step at the stored batch timed, with its peak memory and the
+   CLI's own steps/s and file loads.
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
@@ -159,6 +176,13 @@ HYBRID_SEEDS = {"audio": 0, "text": 2}
 HYBRID_TRAIN_SEED = 1
 # phase 7c: synthetic eval rows the training CLI's hook scores at step 4
 TRAIN_EVAL_ROWS = 16
+# phase 9: the precomputed-STFT variants: windows, clips of 10 s per file
+# (and per step), files, CLI steps, the card-vs-CPU batch
+VARIANT_WINS = (256, 512, 2048)
+VARIANT_BATCH = 16
+VARIANT_FILES = 2
+VARIANT_STEPS = 4
+VARIANT_CPU_BATCH = 2
 RESULTS = {}
 
 
@@ -1272,13 +1296,14 @@ def time_captions(enc, n=16, iters=10):
     return statistics.median(times)
 
 
-def time_mask_kernel(b2=False, iters=10, reps=10):
-    """B1 (or B2) and its plain version at the serving views, in turns."""
+def time_mask_kernel(b2=False, iters=10, reps=10, args=None):
+    """B1 (or B2) and its plain version at the serving views (or at
+    ``args``, B1's five inputs), in turns."""
     import torch
 
     from lass_torch.ops import masking
 
-    args = serving_mask_inputs("cuda")
+    args = serving_mask_inputs("cuda") if args is None else args
     if b2:
         args = (*args[:3], *mag_cos_sin(*args[3:]))
         fn, plain_fn = masking.apply_complex_mask, masking.mask_math
@@ -1663,6 +1688,391 @@ def train_step_card_vs_cpu(sep, batch=2, seed=7):
     return errs
 
 
+def variant_batch(store, index, wins, device):
+    """File ``index`` of a precomputed store on ``device`` (the CLI's
+    ``to_device``) with its raw texts."""
+    from lass_torch.train_multistft import to_device
+
+    raw = store.batch_at(index)
+    return raw, to_device(raw, wins, device)
+
+
+def precompute_on_card(root, config, dataset):
+    """Phase 9a: recipes in process, ``python -m lass_torch.precompute_stfts
+    --mode compute_stfts`` on the card (VARIANT_FILES files), the stored
+    segment STFT against a fresh one on the card, the device part (mix +
+    STFT bank, CUDA events) and the host part (copy to the host + npz
+    write) timed apart, and the load of one stored file."""
+    import numpy as np
+    import torch
+
+    from lass_torch.data.precompute import (
+        batch_payload, generate_recipes, process_batch, save_recipes)
+    from lass_torch.data.precomputed import PrecomputedSTFTDataset
+    from lass_torch.dsp.stft import STFTConfig, wav_to_spectrogram_phase
+
+    recipes = generate_recipes(dataset, VARIANT_BATCH, 2, -10, 10)
+    rpath = os.path.join(root, "recipes.json")
+    save_recipes(recipes, rpath)
+    out_dir = os.path.join(root, "stfts")
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lass_torch.precompute_stfts", "--mode",
+         "compute_stfts", "--config_yaml", config, "--recipes", rpath,
+         "--output_dir", out_dir, "--batch_size", str(VARIANT_BATCH)],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"precompute failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith(".npz"))
+    if files != [f"batch_{i:06d}.npz" for i in range(VARIANT_FILES)]:
+        raise AssertionError(f"the precompute wrote {files}")
+    store = PrecomputedSTFTDataset(out_dir)
+    batch = store.batch_at(0)
+    target = torch.from_numpy(batch["target_waveform"]).cuda()
+    worst = 0.0
+    for win in VARIANT_WINS:
+        fresh = wav_to_spectrogram_phase(target, STFTConfig(n_fft=win))
+        stored = [torch.from_numpy(a).cuda()
+                  for a in batch["stfts"]["segment"][win]]
+        scale = stored[0].abs().max().item()
+        loud = stored[0] > 1e-3 * scale
+        errs = [(fresh[0] - stored[0]).abs().max().item() / scale] + [
+            (f - s)[loud].abs().max().item() for f, s in zip(fresh[1:],
+                                                             stored[1:])]
+        worst = max(worst, *errs)
+    log(f"precompute CLI: {len(files)} files of {VARIANT_BATCH} x 10 s, "
+        f"windows {VARIANT_WINS}, {cli_s:.1f} s; stored segment STFT vs a "
+        f"fresh one on the card: {worst:.3e} (mag rel to its peak, cos and "
+        f"sin abs where mag > 1e-3 of the peak; limit 1e-5)")
+    if not worst <= 1e-5:
+        raise AssertionError("the stored segment STFT is not the target's")
+
+    # the device part at the stored batch's shape: random audio of the
+    # same size, one partner per item
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    n = batch["target_waveform"].shape[-1]
+    seg = 0.1 * torch.randn(VARIANT_BATCH, n, generator=gen, device="cuda")
+    partners = 0.1 * torch.randn(VARIANT_BATCH, 1, n, generator=gen,
+                                 device="cuda")
+    gains = torch.full((VARIANT_BATCH, 1), 3.0, device="cuda")
+    ngains = torch.full((VARIANT_BATCH,), -2.0, device="cuda")
+    masks = torch.ones(VARIANT_BATCH, 1, device="cuda")
+    call = lambda: process_batch(seg, partners, gains, ngains, masks,  # noqa
+                                 VARIANT_WINS)
+    device_ms = cuda_ms(call, 10)
+    _, out_seg, mix_stfts, seg_stfts = call()
+    torch.cuda.synchronize()
+    write_s = []
+    for k in range(2):
+        start = time.perf_counter()
+        payload = batch_payload(batch["text"], batch[
+            "mixture_component_texts"], out_seg, mix_stfts, seg_stfts,
+            VARIANT_WINS, 160)
+        copy_s = time.perf_counter() - start
+        np.savez(os.path.join(root, "timed.npz"), **payload)
+        write_s.append((copy_s, time.perf_counter() - start - copy_s))
+    file_mb = os.path.getsize(os.path.join(out_dir, files[0])) / 1e6
+    load_s = []
+    for k in range(VARIANT_FILES):  # a new store: each load misses its cache
+        start = time.perf_counter()
+        PrecomputedSTFTDataset(out_dir).batch_at(k)
+        load_s.append(time.perf_counter() - start)
+    out = {"cli_s": cli_s, "device_ms": device_ms,
+           "host_copy_s": statistics.median(c for c, _ in write_s),
+           "npz_write_s": statistics.median(w for _, w in write_s),
+           "file_mb": file_mb, "load_s": statistics.median(load_s),
+           "stored_vs_fresh": worst}
+    log(f"precompute per batch of {VARIANT_BATCH} x 10 s: device (mix + "
+        f"STFT bank of both roles) {device_ms:.3f} ms; copy to the host "
+        f"{out['host_copy_s'] * 1e3:.1f} ms, npz write "
+        f"{out['npz_write_s'] * 1e3:.1f} ms ({file_mb:.1f} MB); one stored "
+        f"file loaded by batch_at {out['load_s'] * 1e3:.1f} ms (median over "
+        f"the {VARIANT_FILES} files, page cache warm)")
+    return store, out
+
+
+def variant_forward(store, encoder):
+    """Phase 9b: MultiSTFTResUNet30 (VARIANT_WINS, bf16, seed 0) in eval on
+    the first stored file; the forward launches exactly one B1 and no
+    other kernel; B1 against its plain version at the inputs this forward
+    hands it (the logits' channel views and the rebuilt 512 spectrum,
+    cropped to 256 bins, rows 257 floats apart); the forward's and B1's
+    times. Returns (model, results, launches)."""
+    import torch
+
+    from lass_torch.models.resunet import mask_inputs
+    from lass_torch.models.resunet_multistft import (
+        RECON_WIN, MultiSTFTResUNet30)
+    from lass_torch.ops import masking
+
+    torch.manual_seed(0)
+    model = MultiSTFTResUNet30(win_lengths=VARIANT_WINS,
+                               compute_dtype=torch.bfloat16).cuda().eval()
+    raw, batch = variant_batch(store, 0, VARIANT_WINS, "cuda")
+    length = raw["target_waveform"].shape[-1]
+    inputs = {f"stft_mixture_{part}": {w: batch["stfts"]["mixture"][w][i]
+                                       for w in VARIANT_WINS}
+              for i, part in enumerate(("mag", "cos", "sin"))}
+    inputs["condition"] = encoder.get_query_embed(
+        "text", text=raw["text"])
+    captured = {}
+    hook = model.after_conv.register_forward_hook(
+        lambda mod, args, out: captured.update(logits=out))
+    reset_kernel_counts()
+    with torch.inference_mode():
+        wave = model(inputs, length)["waveform"]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    hook.remove()
+    expect = {name: 0 for name, *_ in KERNELS}
+    expect["apply_complex_mask_ri"] = 1
+    log(f"multistft forward {VARIANT_BATCH} x 10 s bf16, windows "
+        f"{VARIANT_WINS}: output {tuple(wave.shape)}, launches {counts}")
+    if counts != expect:
+        raise AssertionError(f"the multistft forward launched {counts}")
+    if tuple(wave.shape) != (VARIANT_BATCH, 1, length) or not bool(
+            torch.isfinite(wave).all()):
+        raise AssertionError("the multistft forward's output is wrong")
+
+    # B1 at this path's inputs
+    t = inputs["stft_mixture_mag"][RECON_WIN].shape[1]
+    mag = inputs["stft_mixture_mag"][RECON_WIN].permute(0, 3, 1, 2)
+    real_in = mag * inputs["stft_mixture_cos"][RECON_WIN].permute(0, 3, 1, 2)
+    imag_in = mag * inputs["stft_mixture_sin"][RECON_WIN].permute(0, 3, 1, 2)
+    args = mask_inputs(captured["logits"][:, :, :t], real_in, imag_in, 1)
+    with torch.inference_mode():
+        got = masking.apply_complex_mask_ri(*args)
+        torch.cuda.synchronize()
+        ref = masking.mask_math_from_ri(*args)
+    err = max_err(got, ref)
+    scale = max(1.0, max(r.abs().max().item() for r in ref))
+    log(f"mask kernel vs plain at the multistft shape "
+        f"{tuple(args[0].shape)}, spectrum row stride "
+        f"{args[3].stride(1)}: max abs err {err:.3e} (limit "
+        f"{1e-5 * scale:.3e})")
+    if not err <= 1e-5 * scale:
+        raise AssertionError("the mask kernel disagrees at the multistft "
+                             "shape")
+    b1 = time_mask_kernel(args=args)
+    b1["max_abs_err"] = err
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(inputs, length), 10)
+    log(f"apply_complex_mask_ri at {b1['shape']} (multistft): "
+        f"{b1['ms'] * 1e3:.1f} us, plain {b1['plain_ms'] * 1e3:.1f} us, "
+        f"bound {b1['bound_ms'] * 1e3:.1f} us ({b1['bound_by']}); eval "
+        f"forward {fwd_ms:.2f} ms median, "
+        f"{VARIANT_BATCH / (fwd_ms / 1e3):.1f} clips/s")
+    return model, {"b1": b1, "forward_ms": fwd_ms}, counts
+
+
+def variant_card_vs_cpu(model, store, encoder, limit=1e-4):
+    """Phase 9b: the forward's weights in float32 (TF32 off), the first
+    VARIANT_CPU_BATCH items of the first file, on the card and on the CPU
+    (where B1's plain version runs)."""
+    import torch
+
+    from lass_torch.models.resunet_multistft import MultiSTFTResUNet30
+
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    raw = store.batch_at(0)
+    k = VARIANT_CPU_BATCH
+    length = raw["target_waveform"].shape[-1]
+    cond = encoder.get_query_embed("text", text=raw["text"][:k]).cpu()
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = MultiSTFTResUNet30(win_lengths=VARIANT_WINS)
+        m.load_state_dict(state)
+        m.to(dev).eval()
+        inputs = {f"stft_mixture_{part}": {
+            w: torch.from_numpy(raw["stfts"]["mixture"][w][i][:k]).to(dev)
+            for w in VARIANT_WINS}
+            for i, part in enumerate(("mag", "cos", "sin"))}
+        inputs["condition"] = cond.to(dev)
+        with torch.inference_mode():
+            outs.append(m(inputs, length)["waveform"].cpu().double())
+    err = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+    log(f"multistft float32 card vs CPU, B={k} x 10 s: rel err {err:.3e} "
+        f"(limit {limit})")
+    if not err <= limit:
+        raise AssertionError("the multistft forward disagrees between card "
+                             "and CPU")
+    return err
+
+
+def run_variant_cli(workspace, config, store_dir, variant, counts_path):
+    """``python -m lass_torch.train_multistft`` in a subprocess on the card
+    for VARIANT_STEPS steps; returns its metrics by step, checkpoint steps,
+    launches, checkpoint directory and seconds."""
+    cmd = [sys.executable, "-m", "lass_torch.train_multistft",
+           "--workspace", workspace, "--config_yaml", config,
+           "--precomputed_dir", store_dir, "--variant", variant,
+           "--max_steps", str(VARIANT_STEPS), "--log_every", "1",
+           "--launch_counts", counts_path]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0 or f"finished at step {VARIANT_STEPS}" not in \
+            proc.stdout:
+        raise RuntimeError(f"{variant} training failed ({proc.returncode})"
+                           f":\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    stem = os.path.splitext(os.path.basename(config))[0]
+    sub = os.path.join("train_multistft", f"{stem},devices=1")
+    with open(os.path.join(workspace, "tf_logs", sub, "metrics.jsonl")) as f:
+        metrics = {r["step"]: r for r in map(json.loads, f)}
+    ckpt_dir = os.path.join(workspace, "checkpoints", sub)
+    steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt_dir)
+                   if n.endswith(".ckpt"))
+    with open(counts_path) as f:
+        counts = json.load(f)
+    return metrics, steps, counts, ckpt_dir, seconds
+
+
+def variant_training(root, config, store, variant, encoder):
+    """Phase 9c and 9d for one variant: the CLI's VARIANT_STEPS steps
+    (finite losses, checkpoints 1, 2 and 4, one B1 launch per step); in
+    process, the task restored from the step-2 checkpoint repeats the
+    step-3 loss on the step-3 file, then one val step (``encoder``: the
+    CLI's caption encoder, built as it builds it); the device train step
+    timed at the stored batch. Returns (results, launches)."""
+    import numpy as np
+    import torch
+
+    from lass_torch.config import load_config
+    from lass_torch.train.checkpoint import restore_file
+    from lass_torch.train_multistft import build_task, condition
+
+    metrics, steps, counts, ckpt_dir, seconds = run_variant_cli(
+        os.path.join(root, f"ws_{variant}"), config,
+        os.path.dirname(store.paths[0]), variant,
+        os.path.join(root, f"{variant}.json"))
+    losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+    log(f"{variant} CLI, {VARIANT_BATCH} x 10 s per step: steps "
+        f"{sorted(metrics)}, losses {losses}, checkpoints {steps}, "
+        f"launches {counts}, {seconds:.1f} s")
+    if sorted(metrics) != list(range(1, VARIANT_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"{variant} training metrics: {metrics}")
+    if steps != [1, 2, 4]:
+        raise AssertionError(f"{variant} checkpoints at {steps}")
+    expect = {name: 0 for name, *_ in KERNELS}
+    expect["apply_complex_mask_ri"] = VARIANT_STEPS
+    if counts != expect:
+        raise AssertionError(f"{variant} training launched {counts}")
+
+    # the CLI's task, rebuilt as it builds it
+    cfg = load_config(config)
+    wins = VARIANT_WINS if variant == "multistft" else (512,)
+    task = build_task(cfg, variant, wins, "cuda")
+    reset_kernel_counts()
+    restore_file(os.path.join(ckpt_dir, "2.ckpt"), task)
+    raw, batch = variant_batch(store, 2 % VARIANT_FILES, wins, "cuda")
+    cond = condition(encoder, raw, variant)
+    loss3 = float(task.train_step(batch, cond)["train_loss"])
+    val = float(task.val_step(batch, cond))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    rel = abs(loss3 - metrics[3]["train_loss"]) / abs(
+        metrics[3]["train_loss"])
+    log(f"{variant} restored at step 2: step-3 loss {loss3} against the "
+        f"CLI's {metrics[3]['train_loss']}, rel err {rel:.3e} (limit 0); "
+        f"val loss {val}; launches {launches}")
+    if rel != 0.0 or not math.isfinite(val):
+        raise AssertionError(f"the restored {variant} task left the CLI's "
+                             f"run")
+    if launches["apply_complex_mask_ri"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"the restored {variant} steps launched "
+                             f"{launches}")
+    for name, n in counts.items():
+        launches[name] += n
+
+    # the device step at the stored batch (the step-3 file), timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        task.train_step(batch, cond)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(5):
+        m = task.train_step(batch, cond)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) / 5 * 1e3
+    if not torch.isfinite(m["train_loss"]):
+        raise AssertionError(f"the timed {variant} step is not finite")
+    cli_sps = [metrics[k]["steps_per_sec"] for k in sorted(metrics)]
+    load = [metrics[k]["load_s"] for k in sorted(metrics)]
+    out = {"losses": losses, "resume_rel_err": rel, "val_loss": val,
+           "step_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "cli_steps_per_s": cli_sps, "cli_load_s": load,
+           "cli_seconds": seconds}
+    log(f"{variant} train step bf16, {VARIANT_BATCH} x 10 s, batch on the "
+        f"card: {step_ms:.1f} ms, {1e3 / step_ms:.2f} steps/s, peak "
+        f"{out['peak_gib']:.2f} GiB; the CLI's own steps/s by step "
+        f"{[round(x, 3) for x in cli_sps]}, its file loads "
+        f"{[round(x, 3) for x in load]} s")
+    del task
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def variants(sep, build_dir):
+    """Phase 9: the precomputed-STFT variants at full width (module
+    docstring). Returns (results, launches)."""
+    import torch
+
+    from lass_torch.config import load_config
+    from lass_torch.data.datafiles import AudioTextDataset
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.train_multistft import caption_encoder
+
+    start = time.perf_counter()
+    seconds = {}
+    datafile = make_synth_corpus(os.path.join(build_dir, "variant_corpus"),
+                                 num_clips=VARIANT_FILES * VARIANT_BATCH,
+                                 seconds_min=10.0, seconds_max=12.0, seed=1)
+    results, launches = {}, {name: 0 for name, *_ in KERNELS}
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        config = write_train_config(
+            os.path.join(root, "config.yaml"), datafile,
+            batch_size=VARIANT_BATCH, segment_seconds=10, num_workers=8,
+            save_step_frequency=2, compute_dtype="bfloat16")
+        dataset = AudioTextDataset([datafile], sampling_rate=16000,
+                                   max_clip_len=10)
+        seconds["corpus"] = time.perf_counter() - start
+        store, results["precompute"] = precompute_on_card(root, config,
+                                                          dataset)
+        seconds["precompute"] = time.perf_counter() - start - sum(
+            seconds.values())
+        model, fwd, counts = variant_forward(store, sep.query_encoder)
+        results.update(fwd)
+        for name, n in counts.items():
+            launches[name] += n
+        seconds["forward"] = time.perf_counter() - start - sum(
+            seconds.values())
+        results["card_vs_cpu_rel_err"] = variant_card_vs_cpu(
+            model, store, sep.query_encoder)
+        del model
+        torch.cuda.empty_cache()
+        seconds["card_vs_cpu"] = time.perf_counter() - start - sum(
+            seconds.values())
+        encoder = caption_encoder(load_config(config), "cuda")
+        for variant in ("multistft", "negquery"):
+            results[variant], counts = variant_training(
+                root, config, store, variant, encoder)
+            for name, n in counts.items():
+                launches[name] += n
+            seconds[variant] = time.perf_counter() - start - sum(
+                seconds.values())
+    results["phase_s"] = time.perf_counter() - start
+    results["seconds"] = seconds
+    log(f"phase 9: {results['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return results, launches
+
+
 def main():
     import torch
 
@@ -1814,6 +2224,12 @@ def main():
 
     # 8. the float32 train step, card vs CPU
     RESULTS["train_step_card_vs_cpu_rel_err"] = train_step_card_vs_cpu(sep)
+
+    # 9. the precomputed-STFT variants: precompute, forward, training
+    variant, variant_launches = variants(sep, build_dir)
+    for name, n in variant_launches.items():
+        launches[name] += n
+    RESULTS.update(variants=variant, launches_phase9=variant_launches)
 
     kernels = []
     for name, _, _, source, replaces in KERNELS:

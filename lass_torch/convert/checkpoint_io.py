@@ -14,13 +14,13 @@ convert it to an npz pack first.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from lass_torch.convert.from_jax import resunet30_state_dict_from_jax
-from lass_torch.models.film import resunet30_film_spec
+from lass_torch.models.film import FilmEntry, resunet30_film_spec
 
 # frozen DFT conv weights of the reference's STFT/ISTFT front and back end;
 # the port computes the transforms itself
@@ -45,10 +45,21 @@ def _film_key(path) -> str:
     return "film." + "->".join(path)
 
 
-def pack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def pack_film(sd: Dict[str, torch.Tensor],
+              spec: Optional[Tuple[FilmEntry, ...]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Replace the reference's per-path FiLM Linears with the fused
-    ``film.weight`` / ``film.bias``, rows in spec order."""
-    spec = resunet30_film_spec()
+    ``film.weight`` / ``film.bias``, rows in the order of ``spec`` (the
+    model's FiLM spec; ResUNet30's by default). The per-path keys must be
+    exactly the spec's: any other raises."""
+    spec = resunet30_film_spec() if spec is None else spec
+    want = {f"{_film_key(p)}.{leaf}" for p, _, _ in spec
+            for leaf in ("weight", "bias")}
+    have = {k for k in sd if k.startswith("film.")}
+    if have != want:
+        raise KeyError(f"FiLM keys do not fit the spec: missing "
+                       f"{sorted(want - have)[:4]}, unexpected "
+                       f"{sorted(have - want)[:4]}")
     out = {k: v for k, v in sd.items() if not k.startswith("film.")}
     out["film.weight"] = torch.cat(
         [sd[f"{_film_key(p)}.weight"] for p, _, _ in spec], dim=0)
@@ -57,11 +68,20 @@ def pack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def unpack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Inverse of ``pack_film``: the reference's per-path Linears."""
+def unpack_film(sd: Dict[str, torch.Tensor],
+                spec: Optional[Tuple[FilmEntry, ...]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``pack_film``: the reference's per-path Linears. The
+    fused rows must be exactly the spec's features: any other count
+    raises."""
+    spec = resunet30_film_spec() if spec is None else spec
+    rows = sum(feat for _, feat, _ in spec)
+    if sd["film.weight"].shape[0] != rows or sd["film.bias"].shape[0] != rows:
+        raise ValueError(f"fused FiLM has {sd['film.weight'].shape[0]} rows, "
+                         f"the spec {rows}")
     out = {k: v for k, v in sd.items() if not k.startswith("film.")}
     offset = 0
-    for path, feat, _ in resunet30_film_spec():
+    for path, feat, _ in spec:
         key = _film_key(path)
         out[f"{key}.weight"] = sd["film.weight"][offset:offset + feat]
         out[f"{key}.bias"] = sd["film.bias"][offset:offset + feat]
@@ -69,9 +89,12 @@ def unpack_film(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def separator_state_dict(checkpoint_path: str) -> Dict[str, torch.Tensor]:
+def separator_state_dict(checkpoint_path: str,
+                         spec: Optional[Tuple[FilmEntry, ...]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Read a separator checkpoint (see the module docstring) into the
-    port's ResUNet30 state-dict layout."""
+    port's state-dict layout; ``spec``: the model's FiLM spec (ResUNet30's
+    by default; an npz pack is always a ResUNet30's)."""
     if os.path.isdir(checkpoint_path):
         raise ValueError(
             f"{checkpoint_path} is a directory (an orbax checkpoint of the "
@@ -92,7 +115,7 @@ def separator_state_dict(checkpoint_path: str) -> Dict[str, torch.Tensor]:
               if k.startswith("ss_model.")}
     sd = {k: v for k, v in sd.items() if not k.startswith(_IGNORED_PREFIXES)}
     if "film.weight" not in sd:
-        sd = pack_film(sd)
+        sd = pack_film(sd, spec)
     return sd
 
 

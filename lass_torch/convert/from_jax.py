@@ -104,6 +104,45 @@ def resunet30_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
     return out
 
 
+def multistft_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
+    """``{'params', 'batch_stats'}`` of lass_tpu MultiSTFTResUNet30 ->
+    the port's MultiSTFTResUNet30 state dict (the same module names; the
+    windows are read from the ``bn0_<win>`` entries). A
+    ``neg_query_fusion`` entry of params (a NegQueryAudioSepTask's state)
+    is left out: ``neg_query_fusion_state_dict_from_jax`` takes it."""
+    params, stats = variables["params"], variables["batch_stats"]
+    wins = sorted(int(k[len("bn0_"):]) for k in params
+                  if k.startswith("bn0_"))
+    out: StateDict = {}
+    _linear(out, "film", params["film"])
+    for w in wins:
+        _bn(out, f"bn0_{w}", params[f"bn0_{w}"], stats[f"bn0_{w}"])
+        _conv(out, f"pre_conv_{w}", params[f"pre_conv_{w}"])
+        name = f"encoder_block1_{w}"
+        _conv_block(out, f"{name}.conv_block1", params[name]["conv_block1"],
+                    stats[name]["conv_block1"])
+    for name in _ENCODERS[1:]:
+        _conv_block(out, f"{name}.conv_block1", params[name]["conv_block1"],
+                    stats[name]["conv_block1"])
+    for name in _DECODERS:
+        p, s = params[name], stats[name]
+        _bn(out, f"{name}.bn1", p["bn1"], s["bn1"])
+        out[f"{name}.conv1.weight"] = _conv_w(p["conv1"]["kernel"])
+        _conv_block(out, f"{name}.conv_block2", p["conv_block2"],
+                    s["conv_block2"])
+    _conv(out, "after_conv", params["after_conv"])
+    return out
+
+
+def neg_query_fusion_state_dict_from_jax(params: Dict[str, Any]
+                                         ) -> StateDict:
+    """``params['neg_query_fusion']`` of a lass_tpu NegQueryAudioSepTask
+    state -> the port's NegQueryFusion state dict."""
+    out: StateDict = {}
+    _linear(out, "fusion", params["fusion"])
+    return out
+
+
 def roberta_state_dict_from_jax(params: Dict[str, Any], num_layers: int,
                                 prefix: str = "") -> StateDict:
     """lass_tpu RobertaModel params -> HF ``RobertaModel`` names."""

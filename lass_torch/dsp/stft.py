@@ -1,4 +1,4 @@
-"""STFT / ISTFT / magphase in PyTorch.
+"""STFT / ISTFT / magphase / the multi-resolution bank in PyTorch.
 
 Same semantics as ``lass_tpu/dsp/stft.py`` (librosa conventions: center
 reflect padding, periodic hann window padded to n_fft, rfft sign
@@ -12,6 +12,11 @@ convention), computed with FFTs instead of DFT-basis matmuls:
   the DC and Nyquist bins ignored).
 
 Everything runs in float32 whatever the model's compute dtype.
+
+Two (mag, cos, sin) conventions: ``magphase`` clamps the magnitude
+(torchlibrosa), ``spectrogram_phase`` clamps the power before the sqrt
+(the reference's ``Base.spectrogram_phase``, which the precomputed-STFT
+pipeline stores). They differ at silent bins.
 """
 from __future__ import annotations
 
@@ -147,3 +152,37 @@ def wav_to_spectrogram_complex(x: torch.Tensor,
     layout."""
     real, imag = stft(x, cfg)  # (B, C, T, F)
     return real.permute(0, 2, 3, 1), imag.permute(0, 2, 3, 1)
+
+
+def spectrogram_phase(real: torch.Tensor, imag: torch.Tensor,
+                      eps: float = 1e-10
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mag, cos, sin) with the power clamped at ``eps`` before the sqrt,
+    then ``re / mag`` and ``im / mag`` (lass_tpu's ``spectrogram_phase``):
+    a silent bin gives mag sqrt(eps) and cos = sin = 0."""
+    mag = torch.sqrt(torch.clamp(real ** 2 + imag ** 2, min=eps))
+    return mag, real / mag, imag / mag
+
+
+def wav_to_spectrogram_phase(x: torch.Tensor,
+                             cfg: STFTConfig = STFTConfig(),
+                             eps: float = 1e-10
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(B, C, L) -> (mag, cos, sin) each (B, T, F, C), float32, the JAX
+    package's layout (as views of a (B, C, T, F) result)."""
+    real, imag = stft(x, cfg)  # (B, C, T, F)
+    return tuple(a.permute(0, 2, 3, 1)
+                 for a in spectrogram_phase(real, imag, eps))
+
+
+def multi_resolution_spectrogram_phase(x: torch.Tensor, win_lengths,
+                                       hop_length: int = 160,
+                                       eps: float = 1e-10):
+    """(B, C, L) -> {win: (mag, cos, sin) each (B, T, F_win, C)}: the
+    per-window STFT bank of the precompute pipeline and the
+    multi-resolution model's input. Every window shares the hop and pads
+    by n_fft // 2 at each end, so T is the same for all."""
+    return {int(w): wav_to_spectrogram_phase(
+        x, STFTConfig(n_fft=int(w), hop_length=hop_length), eps)
+        for w in win_lengths}

@@ -11,7 +11,7 @@ never reads them) kept so checkpoints round-trip.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -49,6 +49,32 @@ def resunet30_film_spec() -> Tuple[FilmEntry, ...]:
         spec.append(((name, "beta1"), in_ch, True))
         spec.append(((name, "beta2"), in_ch, False))  # dead in reference too
         spec.append(((name, "conv_block2", "beta1"), out_ch * 2, True))
+        spec.append(((name, "conv_block2", "beta2"), out_ch, True))
+    return tuple(spec)
+
+
+def multistft_film_spec(win_lengths: Sequence[int]
+                        ) -> Tuple[FilmEntry, ...]:
+    """FiLM spec of the multi-resolution variant, lass_tpu's
+    ``multistft_film_spec`` entry for entry: one encoder_block1 branch per
+    window (``encoder_block1s/<win>``), then the shared trunk, whose
+    encoder_block2 and decoder_block6 take the 32 * len(wins) fused
+    channels."""
+    spec = []
+    for wl in win_lengths:
+        for beta in ("beta1", "beta2"):
+            spec.append((("encoder_block1s", str(wl), "conv_block1", beta),
+                         32, True))
+    fused = 32 * len(win_lengths)
+    trunk_enc = [("encoder_block2", fused, 64)] + _ENCODER_CHANNELS[2:]
+    for name, in_ch, out_ch in trunk_enc:
+        spec.append(((name, "conv_block1", "beta1"), in_ch, True))
+        spec.append(((name, "conv_block1", "beta2"), out_ch, True))
+    for name, in_ch, out_ch in _DECODER_CHANNELS:
+        skip_ch = fused if name == "decoder_block6" else out_ch
+        spec.append(((name, "beta1"), in_ch, True))
+        spec.append(((name, "beta2"), in_ch, False))
+        spec.append(((name, "conv_block2", "beta1"), out_ch + skip_ch, True))
         spec.append(((name, "conv_block2", "beta2"), out_ch, True))
     return tuple(spec)
 

@@ -210,11 +210,17 @@ class CLAPQueryEncoder:
     def get_query_embed(self, modality: str, audio=None,
                         text: Optional[Sequence[str]] = None,
                         use_text_ratio: float = 0.5,
-                        seed: Optional[int] = None) -> torch.Tensor:
+                        seed: Optional[int] = None,
+                        text_neg: Optional[Sequence[str]] = None):
         """The reference CLAP_Encoder API: 'text' (``text``: B captions),
         'audio' (``audio``: (B, L) or (B, 1, L) at ``sampling_rate``) or
         'hybird' (both; audio when the coin's draw exceeds
-        ``use_text_ratio``). -> (B, 512) on the encoder's device."""
+        ``use_text_ratio``). -> (B, 512) on the encoder's device.
+        'text' with ``text_neg`` (the negative-query variant) -> the
+        (pos, neg) pair of (B, 512) embeddings, which
+        ``lass_torch.tasks.audiosep_variants.NegQueryFusion`` fuses."""
+        if modality == "text" and text_neg is not None:
+            return self._get_text_embed(text), self._get_text_embed(text_neg)
         if modality == "text":
             return self._get_text_embed(text)
         if modality not in ("audio", "hybird"):  # reference spelling kept

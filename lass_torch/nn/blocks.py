@@ -90,18 +90,22 @@ class EncoderBlockRes1B(nn.Module):
 
 class DecoderBlockRes1B(nn.Module):
     """Up-sample (kernel == stride transposed conv) + skip concat +
-    residual conv block."""
+    residual conv block. ``skip_channels`` is the skip's width (-1: as
+    out_channels, the reference's case); the multi-resolution variant's
+    decoder_block6 takes the fused branches' wider skip."""
 
     conv_block = ConvBlockRes  # subclasses swap in a fused block
 
     def __init__(self, in_channels: int, out_channels: int,
                  upsample: Tuple[int, int],
                  kernel_size: Tuple[int, int] = (3, 3),
-                 momentum: float = 0.01, **block_options):
+                 momentum: float = 0.01, skip_channels: int = -1,
+                 **block_options):
         super().__init__()
+        skip = out_channels if skip_channels == -1 else skip_channels
         self.bn1 = BatchNorm(in_channels, momentum)
         self.conv1 = ConvTranspose2d(in_channels, out_channels, upsample)
-        self.conv_block2 = self.conv_block(out_channels * 2, out_channels,
+        self.conv_block2 = self.conv_block(out_channels + skip, out_channels,
                                            kernel_size, momentum,
                                            **block_options)
 

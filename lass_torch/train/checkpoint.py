@@ -6,10 +6,13 @@ steps. Each checkpoint is one file ``<directory>/<step>.ckpt`` written by
 ``torch.save``:
 
 - ``state_dict``: the separator in the reference's Lightning layout
-  (``ss_model.`` keys, per-path FiLM Linears), so
-  ``lass_torch.convert.checkpoint_io.load_ss_model`` serves it as it is;
+  (``ss_model.`` keys, per-path FiLM Linears cut by the model's own FiLM
+  spec), so ``lass_torch.convert.checkpoint_io.load_ss_model`` serves a
+  ResUNet30's as it is; a module the task trains beside it (the
+  negative-query fusion) under its own name (``neg_query_fusion.``);
 - ``optimizer``, ``scheduler``: their state dicts; ``step``: the number of
-  updates done; ``generator``: the mixer generator's state.
+  updates done; ``generator``: the mixer generator's state (the trainer's;
+  the precomputed-STFT variants mix offline and have none).
 
 ``save_async`` copies the state to host memory on the caller's thread (the
 next step updates the parameters in place) and writes the file on a
@@ -42,17 +45,33 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
-def snapshot(task, generator: torch.Generator) -> Dict[str, Any]:
-    """The task's state (model, optimizer, scheduler, step) and the mixer
-    generator's, copied to host memory."""
-    sd = unpack_film(_to_cpu(task.model.state_dict()))
-    return {
-        "state_dict": {f"ss_model.{k}": v for k, v in sd.items()},
+def _extra_modules(task) -> Dict[str, torch.nn.Module]:
+    """Modules a task trains beside its separator (the negative-query
+    fusion), by checkpoint name."""
+    modules = task.modules() if hasattr(task, "modules") else {}
+    return {k: m for k, m in modules.items() if k != "model"}
+
+
+def snapshot(task, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, Any]:
+    """The task's state (model, the modules it trains beside it,
+    optimizer, scheduler, step) and the mixer generator's where it has
+    one, copied to host memory. The separator's FiLM is cut by its own
+    spec (``model.film.spec``)."""
+    sd = unpack_film(_to_cpu(task.model.state_dict()), task.model.film.spec)
+    state_dict = {f"ss_model.{k}": v for k, v in sd.items()}
+    for name, module in _extra_modules(task).items():
+        state_dict.update({f"{name}.{k}": v for k, v in
+                           _to_cpu(module.state_dict()).items()})
+    state = {
+        "state_dict": state_dict,
         "optimizer": _to_cpu(task.optimizer.state_dict()),
         "scheduler": task.scheduler.state_dict(),
         "step": int(task.step),
-        "generator": generator.get_state(),
     }
+    if generator is not None:
+        state["generator"] = generator.get_state()
+    return state
 
 
 class CheckpointManager:
@@ -74,7 +93,8 @@ class CheckpointManager:
         torch.save(state, tmp)
         os.replace(tmp, self.path(step))
 
-    def save_async(self, step: int, task, generator: torch.Generator) -> None:
+    def save_async(self, step: int, task,
+                   generator: Optional[torch.Generator] = None) -> None:
         """Snapshot now, write in the background; at most one write is in
         flight (a second save waits for the first)."""
         self.wait()
@@ -109,7 +129,7 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, task, generator: torch.Generator,
+    def restore(self, task, generator: Optional[torch.Generator] = None,
                 step: Optional[int] = None) -> int:
         """Load checkpoint ``step`` (the latest when None) into the task
         and the generator; returns the step."""
@@ -119,13 +139,21 @@ class CheckpointManager:
         return restore_file(self.path(step), task, generator)
 
 
-def restore_file(path: str, task, generator: torch.Generator) -> int:
-    """Load one checkpoint file into the task and the generator; returns
-    its step."""
+def restore_file(path: str, task,
+                 generator: Optional[torch.Generator] = None) -> int:
+    """Load one checkpoint file into the task (and the generator, where
+    one is given); returns its step."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    task.model.load_state_dict(separator_state_dict(path))
+    task.model.load_state_dict(separator_state_dict(
+        path, task.model.film.spec))
+    for name, module in _extra_modules(task).items():
+        prefix = f"{name}."
+        module.load_state_dict({k[len(prefix):]: v for k, v in
+                                blob["state_dict"].items()
+                                if k.startswith(prefix)})
     task.optimizer.load_state_dict(blob["optimizer"])
     task.scheduler.load_state_dict(blob["scheduler"])
     task.step = int(blob["step"])
-    generator.set_state(blob["generator"])
+    if generator is not None:
+        generator.set_state(blob["generator"])
     return task.step
