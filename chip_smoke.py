@@ -97,13 +97,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    one B1 launch per step; in process the task restored from step 2
    repeats the step-3 loss exactly, and one val step; each variant's bf16
    train step at the stored batch timed, with its peak memory and the
-   CLI's own steps/s and file loads.
+   CLI's own steps/s and file loads;
+10. CLAP pretraining and probing, float32 with the JAX CLI's defaults, at
+   full width (random weights, the whitespace tokenizer): the contrastive
+   step (``lass_torch.tasks.clap_pretrain``) of HTSAT-base + RoBERTa-base
+   and of PANN-14 + RoBERTa-base at CLAP_BATCH x 10 s, captions of
+   CLAP_TEXT_LEN tokens, timed over 5 synchronised steps after 2 warm-up
+   with its peak memory, GFLOP and TF32 settings, every loss finite and
+   both logit scales at most 100; one HTSAT-base step card vs CPU
+   (CLAP_CPU_BATCH x 10 s, the same weights, batch and stripes, warm-up 1
+   and weight decay 10 so that the step moves the parameters by more than
+   10x the limit; loss within 1e-5, grads, updated parameters and BN
+   statistics within 1e-4);
+   ``python -m lass_torch.clap_pretrain`` for CLAP_CLI_STEPS steps of
+   CLAP_CLI_BATCH over synthetic tar shards of 10 s WAV clips with
+   ``--val_datafiles`` (finite losses, checkpoints 1, 2 and 4, the final
+   retrieval dict), in process the step-2 checkpoint repeating the CLI's
+   step-3 loss exactly, the step-4 state's zero-shot over the val clips
+   held against its plain top-k; the same CLI over FLAC shards at
+   CLAP_FLAC_BATCH (its steps/s and decode seconds); ``python -m
+   lass_torch.linear_probe`` on a frozen HTSAT-base with PROBE_CLASSES
+   classes for CLAP_CLI_STEPS steps and one eval (finite loss, mAP, acc,
+   mAUC). None of these paths may launch a kernel of B1-B7 (the launch
+   counts, in process and from each CLI).
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
 every other measured number, and chiprun_out/chip_smoke.json holds them
 all as one JSON object.
 """
+import ast
 import json
 import math
 import os
@@ -183,6 +206,24 @@ VARIANT_BATCH = 16
 VARIANT_FILES = 2
 VARIANT_STEPS = 4
 VARIANT_CPU_BATCH = 2
+# phase 10: CLAP pretraining and probing, float32: the timed steps at the
+# JAX CLI's default batch, every caption padded to its --max_text_len; the
+# CLIs over synthetic tar shards of 10 s clips (CLAP_CLI_BATCH x
+# CLAP_CLI_STEPS clips a run; FLAC: CLAP_FLAC_BATCH a step, the decoder
+# taking about a second a clip, and CLAP_FLAC_DISTINCT different clips
+# cycled, the encoder being slow); the linear probe's AudioSet classes,
+# each clip tagged with half of them so that every class has positives and
+# negatives among the eval clips (finite mAUC)
+CLAP_BATCH = 32
+CLAP_TEXT_LEN = 77
+CLAP_CLI_BATCH = 4
+CLAP_CLI_STEPS = 4
+CLAP_FLAC_BATCH = 2
+CLAP_FLAC_DISTINCT = 2
+CLAP_VAL_CLIPS = 16
+CLAP_CPU_BATCH = 2
+PROBE_CLASSES = 527
+DEVICE = "cuda"  # phase 10's device
 RESULTS = {}
 
 
@@ -2073,6 +2114,386 @@ def variants(sep, build_dir):
     return results, launches
 
 
+def clap_args(amodel="HTSAT-base", *extra):
+    """``python -m lass_torch.clap_pretrain``'s arguments (its defaults,
+    then ``extra``)."""
+    from lass_torch.clap_pretrain import parser
+
+    return parser().parse_args(["--workspace", "-", "--train_shards", "-",
+                                "--amodel", amodel, *extra])
+
+
+def clap_batch(batch, device, seed):
+    """``batch`` clips of 10 s at 48 kHz and captions padded to
+    CLAP_TEXT_LEN tokens (the whitespace tokenizer), on ``device``."""
+    import torch
+
+    from lass_torch.models.clap.tokenizer import WhitespaceFallbackTokenizer
+
+    gen = torch.Generator().manual_seed(seed)
+    texts = [f"a synthetic sound number {i} of a tone over filtered noise"
+             for i in range(batch)]
+    tok = WhitespaceFallbackTokenizer(50265)(texts, max_length=CLAP_TEXT_LEN,
+                                             pad_to=CLAP_TEXT_LEN)
+    return {"waveform": (0.1 * torch.randn(batch, 480000, generator=gen)
+                         ).to(device),
+            "input_ids": torch.from_numpy(tok["input_ids"]).long().to(device),
+            "attention_mask": torch.from_numpy(
+                tok["attention_mask"]).long().to(device)}
+
+
+def no_launches(counts, what):
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched a kernel: {counts}")
+
+
+def time_clap_step(amodel, steps=5):
+    """Phase 10: the float32 contrastive step at CLAP_BATCH x 10 s, host
+    clock over ``steps`` synchronised steps after 2 warm-up, peak memory,
+    its GFLOP by torch's FlopCounterMode on one more step; every loss
+    finite and both scales at most 100 after every step; no kernel of
+    B1-B7 launched."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lass_torch.clap_pretrain import build_task
+
+    task = build_task(clap_args(amodel), DEVICE)
+    data = clap_batch(CLAP_BATCH, DEVICE, seed=20)
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    record = []
+
+    def step():
+        m = task.train_step(data)
+        record.append(torch.stack([m["contrastive_loss"], m["logit_scale_a"],
+                                   m["logit_scale_t"]]))
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with FlopCounterMode(display=False) as flops:
+        step()
+    no_launches(kernel_counts(), f"the {amodel} train step")
+    rows = torch.stack(record).double().cpu().numpy()
+    if not np.isfinite(rows[:, 0]).all():
+        raise AssertionError(f"{amodel}: non-finite loss {rows[:, 0]}")
+    if rows[:, 1:].max() > 100.0 * (1 + 1e-6):
+        raise AssertionError(f"{amodel}: a logit scale above 100: {rows}")
+    out = {"step_ms": seconds * 1e3, "steps_per_s": 1 / seconds,
+           "clips_per_s": CLAP_BATCH / seconds, "peak_gib": peak,
+           "gflop": flops.get_total_flops() / 1e9,
+           "tflop_per_s": flops.get_total_flops() / seconds / 1e12,
+           "losses": rows[:, 0].tolist(),
+           "max_logit_scale": float(rows[:, 1:].max()),
+           "params_m": sum(p.numel() for p in task.parameters()) / 1e6,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32}}
+    log(f"CLAP {amodel} + RoBERTa-base train step, float32, {CLAP_BATCH} x "
+        f"10 s, captions of {CLAP_TEXT_LEN} tokens: {out['step_ms']:.1f} ms "
+        f"({out['steps_per_s']:.2f} steps/s, {out['clips_per_s']:.1f} "
+        f"clips/s), peak {peak:.2f} GiB, {out['gflop']:.0f} GFLOP a step "
+        f"({out['tflop_per_s']:.1f} TFLOP/s), {out['params_m']:.1f} M "
+        f"params, TF32 {out['tf32']}; losses {out['losses']}, largest scale "
+        f"{out['max_logit_scale']:.4f}")
+    del task, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def clap_card_vs_cpu(seed=21, limit=1e-4):
+    """Phase 10: one float32 contrastive step (TF32 off), HTSAT-base +
+    RoBERTa-base, from the same weights, batch (CLAP_CPU_BATCH x 10 s) and
+    spec-augment stripes (drawn on the host from the step's generator) on
+    the card and on the CPU: the loss within 1e-5 relative; the grads, the
+    updated parameters and the updated BN running statistics, each as one
+    vector, within ``limit``. The CLI's defaults with ``--warmup 1 --wd
+    10``: under the default warm-up the first update is lr / 3200 and moves
+    the parameters by about 1e-6 of their norm, so a wrong AdamW step would
+    pass; here the step (the CPU's, measured) must move them by at least
+    10 x ``limit``, and the decay alone moves every parameter by lr x wd =
+    1e-3 of itself."""
+    import torch
+
+    from lass_torch.clap_pretrain import build_task
+
+    args = clap_args("HTSAT-base", "--warmup", "1", "--wd", "10")
+    out = {}
+    state = None
+    for dev in ("cpu", DEVICE):
+        task = build_task(args, dev)
+        if state is None:
+            state = {k: v.clone() for k, v in task.state_dict().items()}
+        else:
+            task.load_state_dict(state)
+        m = task.train_step(clap_batch(CLAP_CPU_BATCH, dev, seed))
+        sd = task.state_dict()
+        out[dev] = (float(m["contrastive_loss"]), torch.cat(
+            [p.grad.detach().double().cpu().ravel()
+             for p in task.parameters()]), torch.cat(
+            [sd[k].double().cpu().ravel() for k in sorted(sd)
+             if "running_" not in k and "num_batches" not in k]),
+            torch.cat([sd[k].double().cpu().ravel() for k in sorted(sd)
+                       if "running_" in k]))
+        del task
+    (loss, *cpu), (loss_c, *card) = out["cpu"], out[DEVICE]
+    errs = {"loss": abs(loss_c - loss) / abs(loss)}
+    for name, a, b in zip(("grads", "params", "bn_stats"), card, cpu):
+        errs[name] = ((a - b).norm() / b.norm()).item()
+    before = torch.cat([state[k].double().ravel() for k in sorted(state)
+                        if "running_" not in k and "num_batches" not in k])
+    errs["step_size"] = ((cpu[1] - before).norm() / before.norm()).item()
+    log(f"CLAP float32 train step card vs CPU, HTSAT-base + RoBERTa-base, "
+        f"B={CLAP_CPU_BATCH} x 10 s, same stripes, lr {args.lr}, warm-up "
+        f"{args.warmup}, wd {args.wd}: rel err {errs} (limits loss 1e-5, "
+        f"the others {limit}; step_size, the CPU step's move of the "
+        f"parameters, at least {10 * limit})")
+    if errs["step_size"] < 10 * limit:
+        raise AssertionError("the CLAP step moves the parameters too little "
+                             "for the card-vs-CPU check to see it")
+    if errs["loss"] > 1e-5 or max(errs["grads"], errs["params"],
+                                  errs["bn_stats"]) > limit:
+        raise AssertionError("the CLAP step disagrees between card and CPU")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_clap_cli(module, argv, workspace, counts_path):
+    """``python -m lass_torch.<module>`` on the card in a subprocess;
+    returns its metrics by step, checkpoint steps, kernel launches, stdout
+    and seconds."""
+    cmd = [sys.executable, "-m", f"lass_torch.{module}", "--workspace",
+           workspace, *argv, "--log_every", "1", "--launch_counts",
+           counts_path, "--device", DEVICE]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    sub = os.path.join(module, f"{module},devices=1")
+    metrics = {}
+    with open(os.path.join(workspace, "tf_logs", sub, "metrics.jsonl")) as f:
+        for record in map(json.loads, f):
+            metrics.setdefault(record["step"], {}).update(record)
+    ckpt_dir = os.path.join(workspace, "checkpoints", sub)
+    steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt_dir)
+                   if n.endswith(".ckpt"))
+    with open(counts_path) as f:
+        counts = json.load(f)
+    no_launches(counts, module)
+    return metrics, steps, ckpt_dir, proc.stdout, seconds
+
+
+def cli_rates(metrics):
+    """The CLI's own steps/s and its load and decode seconds per step."""
+    steps = sorted(k for k in metrics if "steps_per_sec" in metrics[k])
+    return {"steps_per_s": [metrics[k]["steps_per_sec"] for k in steps],
+            "load_s": [metrics[k]["load_s"] for k in steps],
+            "decode_s": [metrics[k].get("decode_s", 0.0) for k in steps]}
+
+
+def clap_resume_and_zero_shot(argv, ckpt_dir, metrics, val_datafile):
+    """Phase 10: in process, the task restored from the CLI's step-2
+    checkpoint repeats its step-3 loss exactly on the step-3 batch (one
+    reader, so the shard order is the CLI's); then the step-4 state
+    classifies the val clips zero-shot (their captions as the classes, one
+    template), held against the same embeddings' top-k in float64."""
+    import numpy as np
+    import torch
+
+    from lass_torch.clap_pretrain import (
+        SAMPLE_RATE, build_task, make_tokenizer, parser, shard_batches,
+        to_device)
+    from lass_torch.data.datafiles import AudioTextDataset
+    from lass_torch.evaluation.zero_shot import (
+        zero_shot_classifier, zero_shot_run)
+    from lass_torch.train.checkpoint import restore_file
+
+    args = parser().parse_args(["--workspace", "-", *argv])
+    task = build_task(args, DEVICE)
+    restore_file(os.path.join(ckpt_dir, "2.ckpt"), task)
+    batches = shard_batches(args, int(SAMPLE_RATE * args.clip_seconds),
+                            {"decode_s": 0.0})
+    for _ in range(3):
+        wave, texts = next(batches)
+    tokenizer = make_tokenizer()
+    reset_kernel_counts()
+    loss = float(task.train_step(to_device(
+        wave, texts, tokenizer, args.max_text_len, DEVICE))[
+        "contrastive_loss"])
+    if loss != metrics[3]["contrastive_loss"]:
+        raise AssertionError(f"restored step 3: loss {loss}, the CLI's "
+                             f"{metrics[3]['contrastive_loss']}")
+
+    restore_file(os.path.join(ckpt_dir, f"{CLAP_CLI_STEPS}.ckpt"), task)
+    val = AudioTextDataset([val_datafile], sampling_rate=SAMPLE_RATE,
+                           max_clip_len=args.clip_seconds)
+    items = [val[i] for i in range(len(val))]
+    captions = [it["text"] for it in items]
+    waves = np.stack([it["waveform"][0] for it in items])
+
+    def embed_texts(texts):
+        data = to_device(np.zeros((len(texts), 1), np.float32), texts,
+                         tokenizer, args.max_text_len, DEVICE)
+        task.text_encoder.eval()
+        with torch.no_grad():
+            return task.text_encoder(data["input_ids"],
+                                     data["attention_mask"])
+
+    def embed_audio(x):
+        task.audio_encoder.eval()
+        with torch.no_grad():
+            return task.audio_encoder(torch.from_numpy(x).to(DEVICE))
+
+    classifier = zero_shot_classifier(embed_texts, captions, (lambda c: c,))
+    target = np.arange(len(captions))
+    batches = [(waves[i:i + CLAP_CLI_BATCH], target[i:i + CLAP_CLI_BATCH])
+               for i in range(0, len(captions), CLAP_CLI_BATCH)]
+    zs = zero_shot_run(embed_audio, classifier, batches)
+    feats = np.concatenate([embed_audio(w).double().cpu().numpy()
+                            for w, _ in batches])
+    logits = feats @ classifier.double().cpu().numpy()
+    order = np.argsort(-logits, axis=1)
+    plain = {"zeroshot-top1": float(np.mean(order[:, 0] == target)),
+             "zeroshot-top5": float(np.mean(
+                 (order[:, :5] == target[:, None]).any(axis=1)))}
+    no_launches(kernel_counts(), "the restored step and zero-shot")
+    if zs != plain:
+        raise AssertionError(f"zero-shot {zs} against the plain top-k "
+                             f"{plain}")
+    del task
+    torch.cuda.empty_cache()
+    return loss, zs
+
+
+def clap_pretraining(build_dir):
+    """Phase 10 (module docstring). Returns its results."""
+    import numpy as np
+
+    from lass_torch.data.synth import make_synth_corpus, make_synth_shards
+
+    start = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+    results = {"htsat_step": time_clap_step("HTSAT-base")}
+    lap("htsat_step")
+    results["pann_step"] = time_clap_step("PANN-14")
+    lap("pann_step")
+    results["card_vs_cpu_rel_err"] = clap_card_vs_cpu()
+    lap("card_vs_cpu")
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        n = CLAP_CLI_BATCH * CLAP_CLI_STEPS
+        wav = make_synth_shards(os.path.join(root, "wav"), num_shards=4,
+                                per_shard=n // 4, seconds=10.0,
+                                num_classes=PROBE_CLASSES,
+                                tags_per_clip=PROBE_CLASSES // 2, seed=1)
+        # 16 clips of seed 1: every class between 2 and 14 of them
+        flac = make_synth_shards(os.path.join(root, "flac"), num_shards=4,
+                                 per_shard=CLAP_FLAC_BATCH * CLAP_CLI_STEPS
+                                 // 4, seconds=10.0,
+                                 audio_format="flac",
+                                 distinct=CLAP_FLAC_DISTINCT, seed=2)
+        val = make_synth_corpus(os.path.join(root, "val"),
+                                num_clips=CLAP_VAL_CLIPS, sample_rate=48000,
+                                seconds_min=10.0, seconds_max=10.0,
+                                alt_rate_fraction=0.0, seed=3)
+        lap("shards")
+        common = ["--max_steps", str(CLAP_CLI_STEPS), "--num_workers", "1"]
+        argv = ["--train_shards", wav, "--val_datafiles", val,
+                "--save_every", "2", "--batch_size", str(CLAP_CLI_BATCH),
+                *common]
+        metrics, steps, ckpt_dir, stdout, cli_s = run_clap_cli(
+            "clap_pretrain", argv, os.path.join(root, "ws_wav"),
+            os.path.join(root, "counts_wav.json"))
+        losses = [metrics[k]["contrastive_loss"] for k in sorted(metrics)]
+        final = ast.literal_eval(stdout.split("final retrieval:")[1]
+                                 .splitlines()[0].strip())
+        wav_rates = cli_rates(metrics)
+        log(f"clap_pretrain CLI, WAV shards, {CLAP_CLI_BATCH} x 10 s: steps "
+            f"{sorted(metrics)}, losses {losses}, checkpoints {steps}, "
+            f"steps/s {wav_rates['steps_per_s']} (load s "
+            f"{wav_rates['load_s']}, decode s {wav_rates['decode_s']}), "
+            f"final retrieval on {final['num_samples']:.0f} val clips: R@1 "
+            f"{final['audio_to_text_R@1']} / {final['text_to_audio_R@1']}, "
+            f"{cli_s:.1f} s")
+        if sorted(metrics) != list(range(1, CLAP_CLI_STEPS + 1)) or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f"clap_pretrain metrics: {metrics}")
+        if steps != [1, 2, 4] or final["num_samples"] != CLAP_VAL_CLIPS or \
+                not all(np.isfinite(v) for v in final.values()):
+            raise AssertionError(f"checkpoints {steps}, retrieval {final}")
+        lap("cli_wav")
+        resumed, zero_shot = clap_resume_and_zero_shot(argv, ckpt_dir,
+                                                       metrics, val)
+        log(f"restored from step 2: step-3 loss {resumed} (the CLI's "
+            f"{metrics[3]['contrastive_loss']}, equal); zero-shot over the "
+            f"{CLAP_VAL_CLIPS} val clips at step 4: {zero_shot}")
+        lap("resume_zero_shot")
+        f_metrics, _, _, _, f_cli_s = run_clap_cli(
+            "clap_pretrain", ["--train_shards", flac, "--save_every", "100",
+                              "--batch_size", str(CLAP_FLAC_BATCH), *common],
+            os.path.join(root, "ws_flac"),
+            os.path.join(root, "counts_flac.json"))
+        f_losses = [f_metrics[k]["contrastive_loss"]
+                    for k in sorted(f_metrics)]
+        flac_rates = cli_rates(f_metrics)
+        log(f"clap_pretrain CLI, FLAC shards, {CLAP_FLAC_BATCH} x 10 s: "
+            f"losses {f_losses}, steps/s "
+            f"{flac_rates['steps_per_s']} (load s {flac_rates['load_s']}, "
+            f"decode s {flac_rates['decode_s']}), {f_cli_s:.1f} s")
+        if len(f_losses) != CLAP_CLI_STEPS or not np.isfinite(f_losses).all():
+            raise AssertionError(f"FLAC run metrics: {f_metrics}")
+        lap("cli_flac")
+        p_metrics, _, _, p_stdout, p_cli_s = run_clap_cli(
+            "linear_probe",
+            ["--train_shards", wav, "--val_shards", wav, "--class_index",
+             os.path.join(root, "wav", "classes.json"), "--save_every",
+             "100", "--batch_size", str(CLAP_CLI_BATCH), *common],
+            os.path.join(root, "ws_probe"),
+            os.path.join(root, "counts_probe.json"))
+        # the one eval, after step 4 (a nan would print as nan: None here)
+        lp = ast.literal_eval(p_stdout.split("final lp metrics:")[1]
+                              .splitlines()[0].strip().replace("nan",
+                                                               "None"))
+        lp_losses = [p_metrics[k]["lp_loss"] for k in sorted(p_metrics)]
+        probe_rates = cli_rates(p_metrics)
+        log(f"linear_probe CLI, frozen HTSAT-base, {PROBE_CLASSES} classes, "
+            f"{CLAP_CLI_BATCH} x 10 s: losses {lp_losses}, steps/s "
+            f"{probe_rates['steps_per_s']}, the eval after step "
+            f"{CLAP_CLI_STEPS} on {n} clips {lp}, {p_cli_s:.1f} s")
+        if len(lp_losses) != CLAP_CLI_STEPS or \
+                not np.isfinite(lp_losses).all() or \
+                sorted(lp) != ["acc", "map", "mauc"] or \
+                not all(v is not None and math.isfinite(v)
+                        for v in lp.values()):
+            raise AssertionError(f"linear probe: {p_metrics}, {lp}")
+        lap("cli_probe")
+    results.update(
+        cli_wav={"losses": losses, "checkpoints": steps, **wav_rates,
+                 "final_retrieval": final, "seconds": cli_s},
+        resumed_step3_loss=resumed, zero_shot=zero_shot,
+        cli_flac={"losses": f_losses, **flac_rates, "seconds": f_cli_s},
+        linear_probe={"losses": lp_losses, "metrics": lp, **probe_rates,
+                      "seconds": p_cli_s},
+        phase_s=time.perf_counter() - start, seconds=seconds)
+    log(f"phase 10: {results['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return results
+
+
 def main():
     import torch
 
@@ -2230,6 +2651,11 @@ def main():
     for name, n in variant_launches.items():
         launches[name] += n
     RESULTS.update(variants=variant, launches_phase9=variant_launches)
+    del sep
+    torch.cuda.empty_cache()
+
+    # 10. CLAP pretraining and probing (no kernel of B1-B7 on these paths)
+    RESULTS["clap"] = clap_pretraining(build_dir)
 
     kernels = []
     for name, _, _, source, replaces in KERNELS:

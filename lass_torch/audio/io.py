@@ -1,7 +1,8 @@
 """Minimal dependency-free RIFF/WAVE codec (the pure-Python path of
 lass_tpu/audio/io.py): PCM 8/16/24/32-bit and IEEE float32/64, mono or
-multi-channel, returning float32 in [-1, 1] shaped (channels, samples).
-FLAC decoding is a later slice of the port.
+multi-channel, returning float32 in [-1, 1] shaped (channels, samples);
+FLAC through ``lass_torch.audio.flac`` (the JAX package's native C++
+decoder is not ported: both formats decode in Python here).
 """
 from __future__ import annotations
 
@@ -23,17 +24,41 @@ def read_wav(path: str, mono: bool = False) -> Tuple[np.ndarray, int]:
     return data, sr
 
 
+def read_wav_bytes(payload: bytes, mono: bool = False
+                   ) -> Tuple[np.ndarray, int]:
+    """In-memory decode (the tar-shard pipeline, data/shards.py): read_wav's
+    contract from a bytes payload."""
+    import io as _io
+
+    data, sr = _read_wav_fileobj(_io.BytesIO(payload), "<bytes>")
+    if mono and data.shape[0] > 1:
+        data = data.mean(axis=0, keepdims=True)
+    return data, sr
+
+
 def read_audio(path: str, mono: bool = False) -> Tuple[np.ndarray, int]:
-    """Format-sniffing loader with read_wav's contract; WAV only for now."""
+    """Format-sniffing loader: WAV or FLAC by magic bytes, read_wav's
+    contract."""
     with open(path, "rb") as f:
-        magic = f.read(4)
-    if magic == b"RIFF":
-        return read_wav(path, mono)
-    if magic == b"fLaC":
-        raise NotImplementedError(
-            f"{path}: FLAC decoding is not in lass_torch yet; convert to WAV")
-    raise ValueError(f"{path}: unrecognized audio container (expected "
-                     "RIFF/WAVE)")
+        payload = f.read()
+    try:
+        return read_audio_bytes(payload, mono)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from exc
+
+
+def read_audio_bytes(payload: bytes, mono: bool = False
+                     ) -> Tuple[np.ndarray, int]:
+    """In-memory format-sniffing decode (the tar shards: the reference's
+    wds.torch_audio decodes FLAC members of LAION-audio shards)."""
+    if payload[:4] == b"fLaC":
+        from lass_torch.audio.flac import decode_flac_bytes
+
+        return decode_flac_bytes(payload, mono)
+    if payload[:4] == b"RIFF":
+        return read_wav_bytes(payload, mono)
+    raise ValueError("unrecognized audio container (expected RIFF/WAVE "
+                     "or fLaC magic)")
 
 
 def _read_wav_py(path: str) -> Tuple[np.ndarray, int]:

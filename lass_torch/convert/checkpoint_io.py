@@ -109,6 +109,14 @@ def separator_state_dict(checkpoint_path: str,
     blob = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     if isinstance(blob, dict) and "state_dict" in blob:
         blob = blob["state_dict"]
+    return separator_layout(blob, spec)
+
+
+def separator_layout(blob: Dict[str, Any],
+                     spec: Optional[Tuple[FilmEntry, ...]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A separator checkpoint's state dict (``ss_model.`` keys or bare,
+    FiLM fused or per path) in the port's layout, FiLM fused by ``spec``."""
     sd = {k: torch.as_tensor(v) for k, v in blob.items()}
     if any(k.startswith("ss_model.") for k in sd):
         sd = {k[len("ss_model."):]: v for k, v in sd.items()

@@ -17,6 +17,15 @@ The inverse of the JAX package's torch -> JAX converters
                  ``mel_conv1d`` kernel (k, I, O) -> Conv1d (O, I, k), the
                  fusion blocks' Dense kernels (I, O) -> 1x1 Conv1d (O, I, 1)
                  (1D fusion) or Conv2d (O, I, 1, 1) (2D fusion)
+- PANN:          ``conv_block{i}``, ``fc1``, ``fc_audioset`` as they are;
+                 ``mel_conv1d(_bn)`` -> ``mel_conv1d.{0,1}``,
+                 ``mel_conv2d(_bn)`` -> ``mel_conv2d.{0,1}``
+- linear probe:  ``clap_model`` -> ``clap_model.*``, ``lp_layer`` (a Dense,
+                 or MLPLayers' ``linear{i}``) -> ``lp_layer`` (a Linear, or
+                 the Sequential's index 3 * i)
+- CLAP pretraining: the ``CLAPTrainState`` params (audio, text, both logit
+                 scales) and batch_stats -> one flat state dict with a CLAP
+                 checkpoint's keys
 - int8 state:    the ``quant`` collection (amax per input channel, at
                  ``<block>/<name>_in``) and the ``qpack`` collection
                  (``<block>/<name>_q`` = {kq (kh, kw, I, O) int8, sw, bc})
@@ -270,13 +279,101 @@ def clap_audio_state_dict_from_jax(variables: Dict[str, Any],
     """lass_tpu CLAPAudioEncoder variables -> the port's CLAPAudioEncoder
     state dict (``audio_branch.*``, ``audio_projection.{0,2}``): the exact
     inverse of ``convert_clap_audio_encoder``."""
+    return _audio_tower(variables,
+                        lambda v: htsat_state_dict_from_jax(v, depths))
+
+
+def pann_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
+    """``{'params', 'batch_stats'}`` of lass_tpu PANN -> the port's PANN
+    state dict (the reference's names): the inverse of ``convert_pann``."""
     params, stats = variables["params"], variables["batch_stats"]
-    branch = htsat_state_dict_from_jax(
-        {"params": params["audio_branch"],
-         "batch_stats": stats["audio_branch"]}, depths)
+    out: StateDict = {}
+    _bn(out, "bn0", params["bn0"], stats["bn0"])
+    i = 1
+    while f"conv_block{i}" in params:
+        p, s = params[f"conv_block{i}"], stats[f"conv_block{i}"]
+        for k in ("1", "2"):
+            if f"conv{k}" in p:
+                _conv(out, f"conv_block{i}.conv{k}", p[f"conv{k}"])
+                _bn(out, f"conv_block{i}.bn{k}", p[f"bn{k}"], s[f"bn{k}"])
+        i += 1
+    _linear(out, "fc1", params["fc1"])
+    _linear(out, "fc_audioset", params["fc_audioset"])
+    if "mel_conv1d" in params:  # 1D fusion
+        out["mel_conv1d.0.weight"] = _t(np.transpose(
+            np.asarray(params["mel_conv1d"]["kernel"]), (2, 1, 0)))
+        out["mel_conv1d.0.bias"] = _t(params["mel_conv1d"]["bias"])
+        _bn(out, "mel_conv1d.1", params["mel_conv1d_bn"],
+            stats["mel_conv1d_bn"])
+    if "mel_conv2d" in params:  # 2D fusion
+        _conv(out, "mel_conv2d.0", params["mel_conv2d"])
+        _bn(out, "mel_conv2d.1", params["mel_conv2d_bn"],
+            stats["mel_conv2d_bn"])
+    if "fusion_model" in params:
+        _fusion_model(out, "fusion_model", params["fusion_model"],
+                      stats["fusion_model"], 2 if "mel_conv2d" in params
+                      else 1)
+    return out
+
+
+def _audio_tower(variables: Dict[str, Any], branch_fn) -> StateDict:
+    """``audio_branch`` through ``branch_fn``, ``audio_projection``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    branch = branch_fn({"params": params["audio_branch"],
+                        "batch_stats": stats["audio_branch"]})
     out: StateDict = {f"audio_branch.{k}": v for k, v in branch.items()}
     _linear(out, "audio_projection.0", params["audio_projection"]["fc1"])
     _linear(out, "audio_projection.2", params["audio_projection"]["fc2"])
+    return out
+
+
+def clap_pann_audio_state_dict_from_jax(variables: Dict[str, Any]
+                                        ) -> StateDict:
+    """lass_tpu CLAPPANNAudioEncoder variables -> the port's
+    CLAPPANNAudioEncoder state dict."""
+    return _audio_tower(variables, pann_state_dict_from_jax)
+
+
+def linear_probe_state_dict_from_jax(variables: Dict[str, Any],
+                                     audio_model: str = "HTSAT",
+                                     depths=(2, 2, 12, 2)) -> StateDict:
+    """lass_tpu LinearProbe variables -> the port's LinearProbe state dict
+    (``clap_model.audio_branch.*``, ``clap_model.audio_projection.*``,
+    ``lp_layer.*``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    branch = (pann_state_dict_from_jax if audio_model.upper() == "PANN"
+              else lambda v: htsat_state_dict_from_jax(v, depths))
+    trunk = _audio_tower({"params": params["clap_model"],
+                          "batch_stats": stats["clap_model"]}, branch)
+    out: StateDict = {f"clap_model.{k}": v for k, v in trunk.items()}
+    lp = params["lp_layer"]
+    if "kernel" in lp:
+        _linear(out, "lp_layer", lp)
+    else:  # MLPLayers: Linear i at Sequential index 3 * i
+        for i in range(len(lp)):
+            _linear(out, f"lp_layer.{3 * i}", lp[f"linear{i}"])
+    return out
+
+
+def clap_pretrain_state_dict_from_jax(params: Dict[str, Any],
+                                      batch_stats: Dict[str, Any],
+                                      num_text_layers: int = 12,
+                                      audio_model: str = "HTSAT",
+                                      depths=(2, 2, 12, 2)) -> StateDict:
+    """A lass_tpu ``CLAPTrainState``'s params (``audio``, ``text``,
+    ``logit_scale_a``, ``logit_scale_t``) and batch_stats (the audio
+    tower's BN running statistics) -> the flat state dict of the port's
+    ``CLAPPretrainTask`` (``audio_branch.*``, ``audio_projection.*``,
+    ``text_branch.*``, ``text_projection.*``, ``logit_scale_a``,
+    ``logit_scale_t``)."""
+    branch = (pann_state_dict_from_jax if audio_model.upper() == "PANN"
+              else lambda v: htsat_state_dict_from_jax(v, depths))
+    out = _audio_tower({"params": params["audio"],
+                        "batch_stats": batch_stats}, branch)
+    out.update(clap_text_state_dict_from_jax(params["text"],
+                                             num_text_layers))
+    for key in ("logit_scale_a", "logit_scale_t"):
+        out[key] = _t(params[key])
     return out
 
 

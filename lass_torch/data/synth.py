@@ -2,11 +2,15 @@
 lass_tpu/data/synth.py): PCM WAV clips of tones over filtered noise plus a
 datafile in the dataset's schema, so the whole training pipeline can run
 where no audio dataset is at hand. Same arguments, byte-identical corpus
-(and the same bytes as the JAX package's writer)."""
+(and the same bytes as the JAX package's writer). ``make_synth_shards``
+(the port's own) writes such clips as tar shards, WAV or FLAC, for CLAP
+pretraining and the linear probe."""
 from __future__ import annotations
 
+import io
 import json
 import os
+import tarfile
 
 import numpy as np
 
@@ -74,6 +78,82 @@ def make_synth_corpus(
     with open(datafile, "w") as f:
         json.dump({"data": entries, "synth_params": stamp}, f)
     return datafile
+
+
+def _synth_clip(rng: np.random.Generator, n: int, rate: int
+                ) -> np.ndarray:
+    """A tone over box-blurred noise, scaled by 0.25 (make_synth_corpus's
+    recipe)."""
+    t = np.arange(n, dtype=np.float32) / rate
+    tone = np.sin(2 * np.pi * float(rng.uniform(80.0, 4000.0)) * t,
+                  dtype=np.float32)
+    noise = rng.standard_normal(n).astype(np.float32)
+    k = int(rng.integers(1, 8))
+    if k > 1:
+        noise = np.convolve(noise, np.ones(k, np.float32) / k,
+                            mode="same").astype(np.float32)
+    a = float(rng.uniform(0.2, 0.8))
+    return ((a * tone + (1 - a) * noise) * 0.25).astype(np.float32)
+
+
+def make_synth_shards(out_dir: str, num_shards: int = 2,
+                      per_shard: int = 4, seconds: float = 10.0,
+                      sample_rate: int = 48000, audio_format: str = "wav",
+                      num_classes: int = 0, tags_per_clip: int = 1,
+                      distinct: int = 0, seed: int = 0) -> str:
+    """``num_shards`` tar shards of ``per_shard`` samples each in the
+    webdataset layout (``<key>.wav`` or ``<key>.flac`` + ``<key>.json``
+    with a ``text`` list and, with ``num_classes``, a ``tag`` list of
+    ``tags_per_clip`` distinct classes ``class_<k>``, each naming a column
+    of ``out_dir/classes.json``), and ``sizes.json``; returns the shards'
+    brace pattern. ``distinct`` > 0
+    writes only that many different clips and cycles them (the FLAC
+    encoder is slow); every sample keeps its own key and caption."""
+    from lass_torch.audio.flac import encode_flac
+
+    if audio_format not in ("wav", "flac"):
+        raise ValueError(f"audio_format {audio_format!r}")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sample_rate)
+    total = num_shards * per_shard
+    payloads = []
+    for _ in range(distinct or total):
+        clip = _synth_clip(rng, n, sample_rate)
+        if audio_format == "flac":
+            payloads.append(encode_flac(clip[None], sample_rate))
+        else:
+            buf = os.path.join(out_dir, "_clip.wav")
+            write_wav(buf, clip, sample_rate)
+            with open(buf, "rb") as f:
+                payloads.append(f.read())
+            os.remove(buf)
+    if num_classes:
+        with open(os.path.join(out_dir, "classes.json"), "w") as f:
+            json.dump({f"class_{k}": k for k in range(num_classes)}, f)
+    sizes = {}
+    for s in range(num_shards):
+        name = f"train-{s:06d}.tar"
+        with tarfile.open(os.path.join(out_dir, name), "w") as tf:
+            for j in range(per_shard):
+                i = s * per_shard + j
+                key = f"s{s:03d}k{j:04d}"
+                meta = {"text": [f"synthetic sound number {i}",
+                                 f"a tone over noise, clip {i}"]}
+                if num_classes:
+                    meta["tag"] = [f"class_{k}" for k in sorted(rng.choice(
+                        num_classes, tags_per_clip, replace=False))]
+                for ext, data in ((audio_format,
+                                   payloads[i % len(payloads)]),
+                                  ("json", json.dumps(meta).encode())):
+                    info = tarfile.TarInfo(f"{key}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+        sizes[name] = per_shard
+    with open(os.path.join(out_dir, "sizes.json"), "w") as f:
+        json.dump(sizes, f)
+    return os.path.join(out_dir, "train-{%06d..%06d}.tar"
+                        % (0, num_shards - 1))
 
 
 def write_train_config(

@@ -1,5 +1,4 @@
-"""HTSAT, the CLAP audio tower (counterpart of lass_tpu/models/clap/htsat.py),
-eval forward.
+"""HTSAT, the CLAP audio tower (counterpart of lass_tpu/models/clap/htsat.py).
 
 The reference's models/CLAP/open_clip/htsat.py. HTSAT-base
 (create_htsat_model :1275-1288): spec_size 256, patch 4x4 stride 4, embed
@@ -28,9 +27,15 @@ As in the JAX package:
   picked with ``torch.where(longer)``.
 
 Activations are NCHW around the convs, (B, tokens, C) through the Swin
-stages. Train mode (spec-augment, batch statistics) serves CLAP
-pretraining only, which the port does not have yet: the forward raises in
-train mode.
+stages. Train mode (``.train()``, CLAP pretraining) takes batch statistics
+in bn0 (and in ``mel_conv1d`` and the fusion blocks) and spec-augments the
+log-mel after bn0 (after the 1D fusion; on the 4-channel stack, stripes
+shared by the channels, for 2D fusion and channel_map): two time stripes
+up to 64 frames and two frequency stripes up to 8 bins per item, as
+torchlibrosa's SpecAugmentation (reference htsat.py:896-901). The stripes
+come from the forward's ``generator`` on the CPU (``draw_stripes``), then
+``stripe_keep`` builds the mask from them on the mel's device, so a card
+and a CPU run of one seed mask alike.
 """
 from __future__ import annotations
 
@@ -51,6 +56,10 @@ from lass_torch.utils.precision import ieee_float32
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, which lass_tpu keeps
 FUSION_1D = ("daf_1d", "aff_1d", "iaff_1d")
 FUSION_2D = ("daf_2d", "aff_2d", "iaff_2d")
+# spec-augment (torchlibrosa SpecAugmentation as HTSAT configures it):
+# (widest stripe, stripes per item) in time and in frequency
+TIME_STRIPES = (64, 2)
+FREQ_STRIPES = (8, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,8 +183,76 @@ def _window_reverse(x: torch.Tensor, window: int, h: int, w: int
 
 
 # ---------------------------------------------------------------------------
+# train-mode draws
+# ---------------------------------------------------------------------------
+
+def draw_stripes(batch: int, size: int, width: int, count: int,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(starts, lengths), each (batch, count) int64 on the CPU: starts in
+    [0, max(size - width, 1)), lengths in [0, width], the ranges of the
+    JAX package's ``_spec_augment``."""
+    starts = torch.randint(0, max(size - width, 1), (batch, count),
+                           generator=generator)
+    lengths = torch.randint(0, width + 1, (batch, count),
+                            generator=generator)
+    return starts, lengths
+
+
+def stripe_keep(starts: torch.Tensor, lengths: torch.Tensor, size: int,
+                device=None) -> torch.Tensor:
+    """(B, size) bool, False inside any of an item's stripes
+    [start, start + length)."""
+    starts, lengths = starts.to(device), lengths.to(device)
+    idx = torch.arange(size, device=starts.device)
+    hit = (idx >= starts[..., None]) & (idx < (starts + lengths)[..., None])
+    return ~hit.any(dim=1)
+
+
+def spec_augment(mel: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Zero random time and frequency stripes of (B, T, F) or (B, C, T, F)
+    (shared across C); time stripes are drawn first, starts before
+    lengths."""
+    b, t, f = mel.shape[0], mel.shape[-2], mel.shape[-1]
+    tkeep = stripe_keep(*draw_stripes(b, t, *TIME_STRIPES, generator), t,
+                        mel.device)
+    fkeep = stripe_keep(*draw_stripes(b, f, *FREQ_STRIPES, generator), f,
+                        mel.device)
+    mask = (tkeep[:, :, None] & fkeep[:, None, :]).to(mel.dtype)
+    return mel * (mask[:, None] if mel.dim() == 4 else mask)
+
+
+def device_generator(generator: Optional[torch.Generator],
+                     device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from one draw of ``generator``
+    (for masks too large to draw on the host: dropout)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
+
+def fuse_1d(mel_conv1d: nn.Module, fusion_model: nn.Module,
+            mel4: torch.Tensor, longer: torch.Tensor) -> torch.Tensor:
+    """1D mel fusion of HTSAT and PANN (reference htsat.py:1157-1196,
+    pann_model.py:304-343): channel 0 is the global mel; channels 1:4 go
+    through ``mel_conv1d`` (a stride-3 conv + BN over time, the mel bins as
+    channels), are concatenated in time and attention-fused into the global
+    one where ``longer``. (B, 4, T, F) -> (B, T, F)."""
+    b, _, t, f = mel4.shape
+    glob = mel4[:, 0]
+    local = mel4[:, 1:].reshape(b * 3, t, f).transpose(1, 2)
+    h = mel_conv1d(local)  # (3B, F, T2)
+    t2 = h.shape[2]
+    h = h.reshape(b, 3, f, t2).permute(0, 2, 1, 3).reshape(b, f, 3 * t2)
+    h = h[:, :, :t] if 3 * t2 >= t else F.pad(h, (0, t - 3 * t2))
+    fused = fusion_model(glob.transpose(1, 2), h).transpose(1, 2)
+    return torch.where(longer.to(torch.bool)[:, None, None], fused, glob)
+
 
 def _init_linear(layer: nn.Linear) -> nn.Linear:
     """The reference Swin's init: truncated normal 0.02, zero bias."""
@@ -361,25 +438,32 @@ class HTSAT(nn.Module):
 
     def forward(self, waveform: Optional[torch.Tensor] = None, *,
                 mel_fusion: Optional[torch.Tensor] = None,
-                longer: Optional[torch.Tensor] = None
+                longer: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "HTSAT runs in eval mode only (call .eval()): train mode "
-                "(spec-augment, batch statistics) serves CLAP pretraining, "
-                "which lass_torch does not have yet")
+        """``generator`` (a CPU generator) draws train mode's spec-augment
+        stripes; torch's default one when None."""
         cfg = self.cfg
+        train = self.training
         if cfg.enable_fusion:
             if mel_fusion is None or longer is None:
                 raise ValueError("fusion-enabled HTSAT takes "
                                  "mel_fusion=(B,4,T,M) and longer=(B,)")
             mel4 = self.bn0(mel_fusion.float())  # (B, 4, T, M)
             if self.fusion_1d:
-                x = self._reshape_wav2img(self._fuse_1d(mel4, longer))
+                mel = fuse_1d(self.mel_conv1d, self.fusion_model, mel4,
+                              longer)
+                if train:
+                    mel = spec_augment(mel, generator)
+                x = self._reshape_wav2img(mel)
             else:  # 2D families and channel_map keep the 4 channels
+                if train:
+                    mel4 = spec_augment(mel4, generator)
                 x = self._reshape_wav2img_multi(mel4)
         else:
             mel = self.bn0(log_mel_spectrogram(waveform, cfg.mel))
+            if train:
+                mel = spec_augment(mel, generator)
             x = self._reshape_wav2img(mel)  # (B, 1, S, S)
         frames_num = x.shape[2]
 
@@ -441,22 +525,6 @@ class HTSAT(nn.Module):
         b, c, t, f = mel4.shape
         img = self._reshape_wav2img(mel4.reshape(b * c, t, f))
         return img.reshape(b, c, img.shape[2], img.shape[3])
-
-    def _fuse_1d(self, mel4: torch.Tensor, longer: torch.Tensor
-                 ) -> torch.Tensor:
-        """1D mel fusion (reference htsat.py:1157-1196): channel 0 is the
-        global mel; channels 1:4 go through mel_conv1d (a stride-3 conv +
-        BN over time, the mel bins as channels), are concatenated in time
-        and attention-fused into the global one. (B, 4, T, F) -> (B, T, F)."""
-        b, _, t, f = mel4.shape
-        glob = mel4[:, 0]
-        local = mel4[:, 1:].reshape(b * 3, t, f).transpose(1, 2)
-        h = self.mel_conv1d(local)  # (3B, F, T2)
-        t2 = h.shape[2]
-        h = h.reshape(b, 3, f, t2).permute(0, 2, 1, 3).reshape(b, f, 3 * t2)
-        h = h[:, :, :t] if 3 * t2 >= t else F.pad(h, (0, t - 3 * t2))
-        fused = self.fusion_model(glob.transpose(1, 2), h).transpose(1, 2)
-        return torch.where(longer.to(torch.bool)[:, None, None], fused, glob)
 
     def _patch_embed_fused_2d(self, x: torch.Tensor, longer: torch.Tensor
                               ) -> torch.Tensor:

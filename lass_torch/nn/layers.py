@@ -5,11 +5,12 @@ the compute dtype: convolutions cast their float32 weights to it at use,
 and BatchNorm in eval folds its statistics into a float32 scale and shift
 that are cast to it at use (``lass_tpu/nn/layers.py`` BatchNorm). Train-mode
 BatchNorm is torch's own (momentum 0.01 as torch means it, unbiased running
-variance, eps 1e-5), computed in float32.
+variance, eps 1e-5), computed in float32, over an activation of any rank.
+``dropout`` draws its mask from an explicit generator.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,6 +27,10 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.dim = dim
 
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"expected 2D or more input (got {x.dim()}D)")
+
     def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Eval affine in float32: y = x * inv + shift."""
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -39,6 +44,17 @@ class BatchNorm(nn.BatchNorm2d):
         shape = [1] * x.dim()
         shape[self.dim] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout`` (keep with probability
+    1 - p, scale by 1 / (1 - p)), its mask from ``generator`` (on x's
+    device; torch's default generator when None)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 def _xavier_(module: nn.Module) -> None:

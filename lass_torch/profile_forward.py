@@ -2,7 +2,7 @@
 by kernel family.
 
     python -m lass_torch.profile_forward [--config default|A|B] [--batch 16]
-        [--seconds 10] [--iters 3] [--train]
+        [--seconds 10] [--iters 3] [--train] [--clap HTSAT-base|PANN-14]
 
 Runs the full-width ResUNet30 forward (config/audiosep_base.yaml, random
 weights) in the chosen serving configuration (``CONFIGS`` in
@@ -14,7 +14,10 @@ device's busy share of the profiled window, with the card's name and
 power limit. ``--train`` profiles the bf16 train step instead
 (``AudioSepTask.train_step``: mix, forward in train mode, backward, AMSGrad;
 the default configuration, as the fused switches are eval-only), per step.
-Needs a CUDA device.
+``--clap`` profiles the float32 CLAP contrastive step instead (the audio
+tower it names + RoBERTa-base, random weights, TF32 off; ``--batch`` clips
+of ``--seconds`` at 48 kHz, 32 by default, captions of 77 tokens; the
+pretraining CLI's defaults). Needs a CUDA device.
 """
 import argparse
 import contextlib
@@ -30,13 +33,17 @@ FAMILIES = [  # first match wins; matched against the lower-cased name
     ("fused conv block kernel", ("residual_conv_block",)),
     ("fused act+convT kernel", ("act_convt",)),
     ("fused head+mask kernel", ("head_mask",)),
-    ("fft", ("fft",)),
     ("optimizer (AdamW)", ("multi_tensor", "foreach", "adam")),
     ("batch norm (train)", ("batch_norm", "batchnorm", "welford", "bn_fw_",
                             "bn_bw_")),
+    ("softmax", ("softmax",)),
+    ("layer norm", ("layer_norm", "layernorm")),
     ("overlap-add (fold)", ("col2im", "im2col")),
-    ("conv", ("conv", "cudnn", "xmma", "implicit", "fprop", "nchwtonhwc",
-              "nhwctonchw", "dgrad", "wgrad")),
+    # cuDNN's convs, its FFT-based ones included (fft2d_* and a complex
+    # xmma GEMM); cuBLAS's real GEMMs are xmma kernels too: matmul
+    ("conv", ("conv", "cudnn", "implicit", "fprop", "nchwtonhwc",
+              "nhwctonchw", "dgrad", "wgrad", "fft2d_", "gemm_cf32")),
+    ("fft", ("fft",)),
     ("matmul", ("gemm", "cutlass", "cublas", "matmul")),
     ("elementwise/reduce", ("elementwise", "vectorized", "unrolled",
                             "reduce", "cat", "pool", "copy", "fill")),
@@ -55,15 +62,20 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", choices=("default", "A", "B"),
                         default="default")
-    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="clips per call (16; --clap: 32)")
     parser.add_argument("--seconds", type=float, default=10.0)
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--train", action="store_true",
                         help="profile train steps (default config only)")
+    parser.add_argument("--clap", choices=("HTSAT-base", "PANN-14"),
+                        default=None,
+                        help="profile the CLAP contrastive step instead")
     args = parser.parse_args(argv)
     if args.train and args.config != "default":
         parser.error("--train runs the default configuration: the fused "
                      "switches are eval-only")
+    args.batch = args.batch or (32 if args.clap else 16)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -77,12 +89,34 @@ def main(argv=None):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(repo, "config", "audiosep_base.yaml"))
     torch.manual_seed(0)
-    model = build_model(cfg, **CONFIGS[args.config]).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wave = 0.1 * torch.randn(args.batch, 1, int(args.seconds * 16000),
-                             generator=gen, device="cuda")
-    cond = torch.randn(args.batch, 512, generator=gen, device="cuda")
-    if args.train:
+    rate = 48000 if args.clap else 16000
+    shape = [args.batch, 1, int(args.seconds * rate)]
+    wave = 0.1 * torch.randn(*shape, generator=gen, device="cuda")
+    if args.clap:
+        from lass_torch.clap_pretrain import build_task, parser as clap_args
+        from lass_torch.models.clap.tokenizer import (
+            WhitespaceFallbackTokenizer)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        task = build_task(clap_args().parse_args(
+            ["--workspace", "-", "--train_shards", "-", "--amodel",
+             args.clap]), "cuda")
+        tok = WhitespaceFallbackTokenizer(50265)(
+            [f"a synthetic sound number {i} of a tone over filtered noise"
+             for i in range(args.batch)], max_length=77, pad_to=77)
+        data = {"waveform": wave[:, 0],
+                "input_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
+                "attention_mask": torch.from_numpy(
+                    tok["attention_mask"]).long().cuda()}
+        mode = contextlib.nullcontext()
+
+        def run():
+            task.train_step(data)
+    elif args.train:
+        model = build_model(cfg, **CONFIGS[args.config]).cuda()
+        cond = torch.randn(args.batch, 512, generator=gen, device="cuda")
         from lass_torch.data.mixer import SegmentMixer
         from lass_torch.tasks.audiosep import AudioSepTask
         from lass_torch.train.optim import build_optimizer
@@ -97,7 +131,8 @@ def main(argv=None):
         def run():
             task.train_step(data, gen)
     else:
-        model.eval()
+        model = build_model(cfg, **CONFIGS[args.config]).cuda().eval()
+        cond = torch.randn(args.batch, 512, generator=gen, device="cuda")
         batch = {"mixture": wave, "condition": cond}
         mode = torch.inference_mode()
 
@@ -120,6 +155,10 @@ def main(argv=None):
 
     per_kernel = collections.Counter()
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False) or \
+                evt.key.startswith("Optimizer."):
+            continue  # a range over kernels (the optimizer step's) that
+            # would count their time twice
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
         if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
@@ -135,10 +174,10 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     result = {
         "card": card,
-        "config": args.config,
-        "mode": "train step" if args.train else "forward",
-        "shape": [args.batch, 1, int(args.seconds * 16000)],
-        "dtype": cfg.model.compute_dtype,
+        "config": f"CLAP {args.clap}" if args.clap else args.config,
+        "mode": "train step" if args.train or args.clap else "forward",
+        "shape": shape,
+        "dtype": "float32" if args.clap else cfg.model.compute_dtype,
         "ms_per_call_cuda_events": fwd_ms,
         "device_busy_ms_per_call": busy,
         "device_idle_share": (1 - busy / fwd_ms) if busy else None,
@@ -150,7 +189,7 @@ def main(argv=None):
               file=sys.stderr)
     print(f"card: {card}")
     print(f"{result['mode']} {result['shape']} {result['dtype']}, config "
-          f"{args.config}: {fwd_ms:.2f} ms "
+          f"{result['config']}: {fwd_ms:.2f} ms "
           f"(CUDA events), device busy {busy:.2f} ms")
     for fam, ms in by_family.most_common():
         print(f"  {fam:22s} {ms:8.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%")

@@ -21,6 +21,7 @@ import torch
 
 from lass_torch.data.mixer import SegmentMixer
 from lass_torch.losses import get_loss_function
+from lass_torch.train.checkpoint import SeparatorCheckpoint
 
 
 def _decode_wire(waveform: torch.Tensor) -> torch.Tensor:
@@ -31,7 +32,7 @@ def _decode_wire(waveform: torch.Tensor) -> torch.Tensor:
     return waveform
 
 
-class AudioSepTask:
+class AudioSepTask(SeparatorCheckpoint):
     def __init__(self, model: torch.nn.Module, mixer: SegmentMixer,
                  optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LRScheduler,

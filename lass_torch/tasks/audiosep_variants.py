@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from lass_torch.losses import l1
+from lass_torch.train.checkpoint import SeparatorCheckpoint
 
 
 def negative_captions(pos_caps: Sequence[str],
@@ -62,7 +63,7 @@ def stft_input(batch: Dict, wins: Sequence[int]) -> Dict[str, Dict]:
             "stft_mixture_sin": {w: mix[w][2] for w in wins}}
 
 
-class MultiSTFTAudioSepTask:
+class MultiSTFTAudioSepTask(SeparatorCheckpoint):
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LRScheduler,
                  loss_fn: Optional[Callable] = None):
@@ -74,10 +75,6 @@ class MultiSTFTAudioSepTask:
         self.loss_fn = loss_fn or l1
         self.wins = tuple(model.win_lengths)
         self.step = 0
-
-    def modules(self) -> Dict[str, nn.Module]:
-        """Everything the task trains, by checkpoint name."""
-        return {"model": self.model}
 
     def parameters(self) -> List[nn.Parameter]:
         return [p for m in self.modules().values() for p in m.parameters()]

@@ -14,6 +14,10 @@ steps. Each checkpoint is one file ``<directory>/<step>.ckpt`` written by
   updates done; ``generator``: the mixer generator's state (the trainer's;
   the precomputed-STFT variants mix offline and have none).
 
+A task takes on ``TaskCheckpoint`` and gives the ``state_dict`` of its own
+layout: ``SeparatorCheckpoint`` gives the separator tasks' above, the CLAP
+tasks give their flat CLAP (or probe) state dict.
+
 ``save_async`` copies the state to host memory on the caller's thread (the
 next step updates the parameters in place) and writes the file on a
 background thread; ``wait`` joins it and re-raises its error. Files are
@@ -29,8 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from lass_torch.convert.checkpoint_io import (
-    separator_state_dict, unpack_film)
+from lass_torch.convert.checkpoint_io import separator_layout, unpack_film
 
 _NAME = re.compile(r"^(\d+)\.ckpt$")
 
@@ -45,30 +48,57 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
-def _extra_modules(task) -> Dict[str, torch.nn.Module]:
-    """Modules a task trains beside its separator (the negative-query
-    fusion), by checkpoint name."""
-    modules = task.modules() if hasattr(task, "modules") else {}
-    return {k: m for k, m in modules.items() if k != "model"}
+class TaskCheckpoint:
+    """``checkpoint_state`` and ``load_checkpoint_state`` of a task with
+    ``optimizer``, ``scheduler``, ``step`` and its own ``state_dict`` /
+    ``load_state_dict``."""
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        return {"state_dict": self.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "step": int(self.step)}
+
+    def load_checkpoint_state(self, blob: Dict[str, Any]) -> None:
+        self.load_state_dict(blob["state_dict"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.scheduler.load_state_dict(blob["scheduler"])
+        self.step = int(blob["step"])
 
 
-def snapshot(task, generator: Optional[torch.Generator] = None
-             ) -> Dict[str, Any]:
-    """The task's state (model, the modules it trains beside it,
-    optimizer, scheduler, step) and the mixer generator's where it has
-    one, copied to host memory. The separator's FiLM is cut by its own
-    spec (``model.film.spec``)."""
-    sd = unpack_film(_to_cpu(task.model.state_dict()), task.model.film.spec)
-    state_dict = {f"ss_model.{k}": v for k, v in sd.items()}
-    for name, module in _extra_modules(task).items():
-        state_dict.update({f"{name}.{k}": v for k, v in
-                           _to_cpu(module.state_dict()).items()})
-    state = {
-        "state_dict": state_dict,
-        "optimizer": _to_cpu(task.optimizer.state_dict()),
-        "scheduler": task.scheduler.state_dict(),
-        "step": int(task.step),
-    }
+class SeparatorCheckpoint(TaskCheckpoint):
+    """The separator tasks' layout: ``model`` under ``ss_model.``, its FiLM
+    cut per path by its own spec (``model.film.spec``); every other module
+    of ``modules()`` (the negative-query fusion) under its own name."""
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        """Everything the task trains, by checkpoint name."""
+        return {"model": self.model}
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        sd = unpack_film(self.model.state_dict(), self.model.film.spec)
+        state_dict = {f"ss_model.{k}": v for k, v in sd.items()}
+        for name, module in self.modules().items():
+            if name != "model":
+                state_dict.update({f"{name}.{k}": v for k, v in
+                                   module.state_dict().items()})
+        return state_dict
+
+    def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        self.model.load_state_dict(separator_layout(sd,
+                                                    self.model.film.spec))
+        for name, module in self.modules().items():
+            if name != "model":
+                prefix = f"{name}."
+                module.load_state_dict({k[len(prefix):]: v for k, v in
+                                        sd.items() if k.startswith(prefix)})
+
+
+def snapshot(task: TaskCheckpoint,
+             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """The task's checkpoint state and the mixer generator's where it has
+    one, copied to host memory."""
+    state = _to_cpu(task.checkpoint_state())
     if generator is not None:
         state["generator"] = generator.get_state()
     return state
@@ -144,16 +174,7 @@ def restore_file(path: str, task,
     """Load one checkpoint file into the task (and the generator, where
     one is given); returns its step."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    task.model.load_state_dict(separator_state_dict(
-        path, task.model.film.spec))
-    for name, module in _extra_modules(task).items():
-        prefix = f"{name}."
-        module.load_state_dict({k[len(prefix):]: v for k, v in
-                                blob["state_dict"].items()
-                                if k.startswith(prefix)})
-    task.optimizer.load_state_dict(blob["optimizer"])
-    task.scheduler.load_state_dict(blob["scheduler"])
-    task.step = int(blob["step"])
+    task.load_checkpoint_state(blob)
     if generator is not None:
         generator.set_state(blob["generator"])
     return task.step

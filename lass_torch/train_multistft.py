@@ -23,9 +23,6 @@ last record, and load_s, the seconds spent loading the files) go to
 steps. Runs on the GPU unless ``--device cpu`` is given.
 """
 import argparse
-import json
-import logging
-import time
 
 
 def build_task(cfg, variant: str, win_lengths, device):
@@ -117,8 +114,8 @@ def main(argv=None):
 
     from lass_torch.config import load_config
     from lass_torch.data.precomputed import PrecomputedSTFTDataset
-    from lass_torch.train.__main__ import launch_counts
     from lass_torch.train.checkpoint import CheckpointManager
+    from lass_torch.train.cli_loop import run_steps
     from lass_torch.train.loop import get_dirs
     from lass_torch.utils.logging import MetricsLogger, create_logging
 
@@ -135,37 +132,14 @@ def main(argv=None):
 
     query_encoder = caption_encoder(cfg, device)
     task = build_task(cfg, args.variant, wins, device)
-    ckpt = CheckpointManager(ckpt_dir, cfg.train.save_step_frequency)
-    metrics = MetricsLogger(tf_logs_dir)
-    stop_at = args.max_steps or cfg.train.early_stop_steps
-    pc = time.perf_counter
-    t_last, steps_since, load_s = pc(), 0, 0.0
-    batches = dataset.iterate_batches(loop=True)
-    try:
-        while task.step < stop_at:
-            t0 = pc()
-            raw = next(batches)
-            load_s += pc() - t0
-            m = task.train_step(to_device(raw, wins, device),
-                                condition(query_encoder, raw, args.variant))
-            step = task.step
-            steps_since += 1
-            if step % args.log_every == 0 or step == 1:
-                loss, gnorm = float(m["train_loss"]), float(m["grad_norm"])
-                sps = steps_since / (pc() - t_last)
-                logging.info("step %d loss %.5f (%.2f steps/s, load %.3f s)",
-                             step, loss, sps, load_s)
-                metrics.log(step, {"train_loss": loss, "grad_norm": gnorm,
-                                   "steps_per_sec": sps, "load_s": load_s})
-                t_last, steps_since, load_s = pc(), 0, 0.0
-            if ckpt.should_save(step):
-                ckpt.save_async(step, task)
-    finally:
-        ckpt.wait()
-        metrics.finish()
-        if args.launch_counts:
-            with open(args.launch_counts, "w") as f:
-                json.dump(launch_counts(), f)
+    run_steps(task, dataset.iterate_batches(loop=True),
+              CheckpointManager(ckpt_dir, cfg.train.save_step_frequency),
+              MetricsLogger(tf_logs_dir), log_every=args.log_every,
+              max_steps=args.max_steps or cfg.train.early_stop_steps,
+              train_step=lambda raw: task.train_step(
+                  to_device(raw, wins, device),
+                  condition(query_encoder, raw, args.variant)),
+              launch_counts_path=args.launch_counts)
     print(f"finished at step {task.step}")
 
 

@@ -24,6 +24,7 @@ from lass_tpu.ops.pallas_folded_conv import (
 from lass_torch.nn.blocks import ConvBlockRes
 from lass_torch.nn.fused import FusedConvBlockRes
 from lass_torch.ops import _common, act_conv, convblock
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def to_port(x_nhwc):

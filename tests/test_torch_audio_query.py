@@ -48,6 +48,7 @@ from lass_torch.train import __main__ as cli
 from lass_torch.train import loop
 from lass_torch.train.optim import build_optimizer
 from test_torch_htsat import configs, jax_variables, rel
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REL = 1e-4
 SMALL = dict(vocab_size=200, hidden_size=32, num_hidden_layers=1,

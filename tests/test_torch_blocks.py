@@ -20,6 +20,7 @@ from lass_torch.convert import from_jax
 from lass_torch.models.film import FusedFiLM, resunet30_film_spec
 from lass_torch.nn.blocks import (
     ConvBlockRes, DecoderBlockRes1B, EncoderBlockRes1B)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 TOL = 2e-4
 

@@ -17,6 +17,7 @@ from lass_tpu.models import chunk as jax_chunk
 from lass_torch.evaluation.dcase import SeparationInference
 from lass_torch.models import chunk
 from lass_torch.models.resunet import ResUNet30
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # windows of 100 + 300 + 100 samples at hop 300
 CFG = dict(NL=0.1, NC=0.3, NR=0.1, RATE=1000)

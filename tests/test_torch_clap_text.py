@@ -25,6 +25,7 @@ from lass_torch.models.clap import tokenizer as port_tok
 from lass_torch.models.clap.model import CLAPTextEncoder
 from lass_torch.models.clap.roberta import RobertaConfig
 from lass_torch.models.query_encoder import CLAPQueryEncoder
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SMALL = dict(vocab_size=1000, hidden_size=64, num_hidden_layers=2,
              num_attention_heads=4, intermediate_size=128,

@@ -20,6 +20,7 @@ from lass_tpu.ops.pallas_convblock import (
     fused_residual_conv_block as jax_conv_block)
 from lass_torch.ops import _common, convblock
 from lass_torch.ops.act_conv import tap_weights
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def unpack_b(packed):

@@ -24,6 +24,7 @@ from lass_tpu.ops.folded import (
 from lass_tpu.ops.pallas_convt import fused_act_convT as jax_convT
 from lass_torch.convert.from_jax import _conv_w
 from lass_torch.ops import _common, convt
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("s_in,cin,cout,t,f", [(1, 32, 16, 6, 8),

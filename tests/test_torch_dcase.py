@@ -29,6 +29,7 @@ from lass_torch.models import query_encoder
 from lass_torch.models.clap.roberta import RobertaConfig
 from lass_torch.models.clap.tokenizer import WhitespaceFallbackTokenizer
 from lass_torch.models.resunet import ResUNet30
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 CLAPQueryEncoder = query_encoder.CLAPQueryEncoder
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lass_torch.dsp import stft as P
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 J = importlib.import_module("lass_tpu.dsp.stft")
 HI = jax.lax.Precision.HIGHEST

@@ -10,6 +10,7 @@ import torch
 from lass_tpu.evaluation import dcase as jax_dcase
 from lass_tpu.evaluation import metrics as jax_metrics
 from lass_torch.evaluation import dcase, metrics
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _pair(rng, n=4000, noise=0.3):

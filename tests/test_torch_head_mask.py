@@ -18,6 +18,7 @@ from lass_tpu.ops.folded import fold_conv_kernel
 from lass_tpu.ops.pallas_masking import (
     apply_head_mask_folded, head_mask_reference)
 from lass_torch.ops import masking
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _inputs(rng, b=2, t=8, f=16, c=32, cout=1, t_pad=3):

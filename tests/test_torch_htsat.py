@@ -29,6 +29,7 @@ from lass_torch.models.clap import audio_features, htsat
 from lass_torch.models.clap.fusion import build_mel_fusion
 from lass_torch.models.clap.model import (
     CLAPAudioEncoder, CLAPAudioProjection)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REL = 1e-4
 # tests/test_audio_query.py's TINY HTSAT
@@ -213,9 +214,26 @@ def test_converters_round_trip(fusion_type, rng):
 
 
 def test_train_mode_raises():
-    model = htsat.HTSAT(configs()[0])
-    with pytest.raises(NotImplementedError, match="eval mode only"):
-        model(torch.zeros(1, 48000))
+    """Train mode runs (CLAP pretraining: batch statistics, spec-augment
+    from the forward's generator, the running statistics updated; held
+    against JAX in tests/test_torch_clap_pretrain.py); what still raises
+    is a fusion-enabled tower called without its mel stack, in train mode
+    as in eval mode."""
+    model = htsat.HTSAT(configs()[0]).train()
+    wave = torch.from_numpy(0.1 * np.random.RandomState(0).randn(
+        2, 48000).astype(np.float32))
+    before = model.bn0.running_mean.clone()
+    with torch.no_grad():
+        a = model(wave, generator=torch.Generator().manual_seed(1))
+        b = model(wave, generator=torch.Generator().manual_seed(1))
+        c = model(wave, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a["embedding"], b["embedding"], rtol=0,
+                               atol=0)
+    assert not torch.equal(a["embedding"], c["embedding"])
+    assert not torch.equal(model.bn0.running_mean, before)
+    fused = htsat.HTSAT(configs("aff_1d")[0]).train()
+    with pytest.raises(ValueError, match="mel_fusion"):
+        fused(wave)
 
 
 def test_build_mel_fusion_equals_jax(rng):

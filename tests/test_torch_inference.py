@@ -27,6 +27,7 @@ from lass_torch.models.clap.roberta import RobertaConfig
 from lass_torch.models.clap.tokenizer import WhitespaceFallbackTokenizer
 from lass_torch.models.query_encoder import CLAPQueryEncoder
 from lass_torch.models.resunet import ResUNet30
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,7 @@ import torch
 
 from lass_tpu.ops.pallas_masking import apply_complex_mask as jax_mask
 from lass_torch.ops import masking
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _inputs(rng, shape):

@@ -21,6 +21,7 @@ from lass_tpu.ops.pallas_masking import (
 from lass_torch.dsp.stft import STFTConfig
 from lass_torch.models.resunet import apply_mask_and_reconstruct
 from lass_torch.ops import masking
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 JAX_STFT = importlib.import_module("lass_tpu.dsp.stft")
 

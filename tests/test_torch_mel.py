@@ -16,6 +16,7 @@ from lass_tpu.audio.resample import resample as jax_resample
 from lass_tpu.dsp import mel as jax_mel
 from lass_torch.audio.resample import resample, resample_np
 from lass_torch.dsp import mel
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # the HTSAT-base front end, the tests' TINY HTSAT's, and one with top_db
 CONFIGS = {

@@ -42,6 +42,7 @@ from lass_torch.data.precomputed import PrecomputedSTFTDataset
 from lass_torch.data.synth import make_synth_corpus, write_train_config
 from lass_torch.dsp.stft import (
     STFTConfig, multi_resolution_spectrogram_phase, wav_to_spectrogram_phase)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINS = (256, 512, 2048)

@@ -46,6 +46,7 @@ from lass_torch.evaluation.dcase import SeparationInference
 from lass_torch.models.resunet import ResUNet30
 from lass_torch.nn.blocks import ConvBlockRes
 from lass_torch.ops import quant as Q
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 LENGTH = 8000  # 0.5 s
 

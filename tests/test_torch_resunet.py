@@ -23,6 +23,7 @@ from lass_tpu.models.resunet import ResUNet30 as JaxResUNet30
 from lass_torch.convert.checkpoint_io import load_separator, save_ss_checkpoint
 from lass_torch.convert.from_jax import resunet30_state_dict_from_jax
 from lass_torch.models.resunet import ResUNet30
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 LENGTH = 8000  # 0.5 s: T = 51 frames, padded to 64 inside the UNet
 

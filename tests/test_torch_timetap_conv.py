@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from lass_torch.ops import timetap_conv as tt_mod
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BF16_ULP = 2.0 ** -7

@@ -51,6 +51,7 @@ from lass_torch.nn.blocks import DecoderBlockRes1B, EncoderBlockRes1B
 from lass_torch.nn.layers import BatchNorm, Conv2d
 from lass_torch.tasks.audiosep import AudioSepTask, _decode_wire
 from lass_torch.train.optim import build_optimizer, get_lr_schedule
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REL = 1e-4
 COND, CH, SAMPLES, BATCH = 16, 8, 5120, 2  # B=2 x 0.32 s at 16 kHz

@@ -31,6 +31,7 @@ from lass_torch.train import __main__ as cli
 from lass_torch.train import loop
 from lass_torch.train.checkpoint import CheckpointManager
 from lass_torch.utils.statistics import StatisticsContainer
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SMALL = dict(vocab_size=200, hidden_size=32, num_hidden_layers=1,
              num_attention_heads=4, intermediate_size=64,

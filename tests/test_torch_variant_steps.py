@@ -41,6 +41,7 @@ from lass_torch.train.checkpoint import CheckpointManager, restore_file
 from lass_torch.train.optim import build_optimizer
 from variant_helpers import (
     BATCH, REL, jax_variables, rel_err, stft_bank, port_model)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 STEP_SAMPLES = 5120
 GRAD_NORM_REL, GRADS_REL, TENSOR_REL = 1e-3, 5e-2, 1e-1

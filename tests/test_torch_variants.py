@@ -53,6 +53,7 @@ from lass_torch.tasks.audiosep_variants import (
 from variant_helpers import (
     BATCH, WINS, REL, jax_variables, model_input, rel_err, shake, stft_bank,
     port_model)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 FORWARD_SAMPLES = 4800  # 31 frames, padded to 32
 SMALL_TEXT = dict(vocab_size=1000, hidden_size=64, num_hidden_layers=2,
