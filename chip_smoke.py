@@ -119,7 +119,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    lass_torch.linear_probe`` on a frozen HTSAT-base with PROBE_CLASSES
    classes for CLAP_CLI_STEPS steps and one eval (finite loss, mAP, acc,
    mAUC). None of these paths may launch a kernel of B1-B7 (the launch
-   counts, in process and from each CLI).
+   counts, in process and from each CLI);
+11. data parallelism (``lass_torch.parallel``). (a) One rank per card over
+   NCCL, or on one card two ranks over gloo (NCCL refuses two ranks on one
+   device), each fed its rows of a global batch, against one process fed
+   the whole batch, float32 with TF32 off: the full-width ResUNet30
+   premixed train step of PARALLEL_SEP_BATCH x 10 s (loss, grads and
+   updated parameters each as one vector, BN running statistics; within
+   PARALLEL_REL; every rank's parameters identical), the global mix
+   (PARALLEL_MIX_ABS), the CLAP HTSAT-base + RoBERTa-base step of
+   PARALLEL_CLAP_BATCH x 10 s (as phase 10's card vs CPU: the loss within
+   PARALLEL_LOSS_REL), the evaluator with ``data_parallel`` over
+   PARALLEL_EVAL_ROWS synthetic clips (every metric within
+   PARALLEL_EVAL_DB dB); B1's launches on each rank; each one-process
+   step must move the parameters by at least 10 x PARALLEL_REL of their
+   norm. (b) ``python -m torch.distributed.run
+   --nproc_per_node <cards> -m lass_torch.train`` for PARALLEL_CLI_STEPS
+   steps of TRAIN_BATCH x 10 s a card, bf16, full width, on phase 7's
+   corpus: its steps/s per card, the share of the profiled steps in the
+   collectives' kernels and in BatchNorm's collectives (``--profile``),
+   the ``devices=<cards>`` directory and rank 0's checkpoints; its step-2
+   checkpoint resumed by a single-process ``Trainer`` for steps 3 and 4,
+   the step-4 checkpoint served. (c) The codec: ms to decode a
+   CODEC_SECONDS clip, native against numpy, WAV and FLAC, bitwise equal;
+   beside it phase 10's FLAC CLI, which decodes through the native one.
+   The phase runs (b), (c), then (a).
+   ``python3 chip_smoke.py --phase 11`` runs phases 1, 2 and 11 only (on
+   four cards: W = 4).
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
@@ -209,8 +235,8 @@ VARIANT_CPU_BATCH = 2
 # phase 10: CLAP pretraining and probing, float32: the timed steps at the
 # JAX CLI's default batch, every caption padded to its --max_text_len; the
 # CLIs over synthetic tar shards of 10 s clips (CLAP_CLI_BATCH x
-# CLAP_CLI_STEPS clips a run; FLAC: CLAP_FLAC_BATCH a step, the decoder
-# taking about a second a clip, and CLAP_FLAC_DISTINCT different clips
+# CLAP_CLI_STEPS clips a run; FLAC: CLAP_FLAC_BATCH a step, as PR 9's
+# numpy decoder measured it, and CLAP_FLAC_DISTINCT different clips
 # cycled, the encoder being slow); the linear probe's AudioSet classes,
 # each clip tagged with half of them so that every class has positives and
 # negatives among the eval clips (finite mAUC)
@@ -224,6 +250,21 @@ CLAP_VAL_CLIPS = 16
 CLAP_CPU_BATCH = 2
 PROBE_CLASSES = 527
 DEVICE = "cuda"  # phase 10's device
+# phase 11: data parallelism. (a) the parity checks' global batches: the
+# full-width ResUNet30 premixed train step and the mix, the CLAP step, the
+# evaluator's clips and batch (float32, TF32 off); (b) the training CLI
+# under torch.distributed.run, TRAIN_BATCH clips a card, PARALLEL_CLI_STEPS
+# steps; (c) the codec's clip: 10 s, mono, 48 kHz (the CLAP shards')
+PARALLEL_SEP_BATCH = 4
+PARALLEL_CLAP_BATCH = 4
+PARALLEL_EVAL_ROWS = 16
+PARALLEL_EVAL_BATCH = 4
+PARALLEL_CLI_STEPS = 4
+PARALLEL_REL = 1e-4
+PARALLEL_LOSS_REL = 1e-5
+PARALLEL_MIX_ABS = 1e-6
+PARALLEL_EVAL_DB = 1e-6
+CODEC_SECONDS = 10.0
 RESULTS = {}
 
 
@@ -2494,9 +2535,438 @@ def clap_pretraining(build_dir):
     return results
 
 
-def main():
+def parallel_world():
+    """Phase 11(a)'s (ranks, backend): one rank per card over NCCL; on one
+    card two ranks over gloo."""
     import torch
 
+    cards = torch.cuda.device_count()
+    return (cards, "nccl") if cards > 1 else (2, "gloo")
+
+
+def parity_separator(device):
+    """A float32 full-width ResUNet30 (seed 0) in an AudioSepTask whose
+    AdamW takes its full learning rate from the first update."""
+    import torch
+
+    from lass_torch.data.mixer import SegmentMixer
+    from lass_torch.models.resunet import ResUNet30
+    from lass_torch.tasks.audiosep import AudioSepTask
+    from lass_torch.train.optim import build_optimizer
+
+    torch.manual_seed(0)
+    model = ResUNet30().to(device)
+    optimizer, scheduler = build_optimizer(
+        model.parameters(), "AdamW", 1e-3, "cosine_warm_up", 1, 100)
+    return AudioSepTask(model, SegmentMixer(), optimizer, scheduler)
+
+
+def parity_batches(seed=30):
+    """The global batches of phase 11(a), on the CPU: premixed (mixture,
+    segment, condition) and the mixer's waveforms, PARALLEL_SEP_BATCH clips
+    of 10 s at 16 kHz."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    b = PARALLEL_SEP_BATCH
+    segment = 0.1 * torch.randn(b, 1, 160000, generator=gen)
+    return ({"mixture": segment + 0.1 * torch.randn(b, 1, 160000,
+                                                    generator=gen),
+             "segment": segment,
+             "condition": torch.randn(b, 512, generator=gen)},
+            0.1 * torch.randn(b, 1, 160000, generator=gen))
+
+
+class CaptionStub:
+    """Phase 11(a)'s caption encoder: a seeded (512,) vector a caption
+    (the evaluator's sharding, not the captions, is under test)."""
+
+    def get_query_embed(self, modality, text=None, **kwargs):
+        import zlib
+
+        import numpy as np
+
+        return np.stack([np.random.RandomState(zlib.crc32(t.encode())).randn(
+            512).astype(np.float32) for t in text])
+
+
+def parity_run(device, rank, world, eval_csv, eval_dir):
+    """Phase 11(a)'s paths on this rank's rows (the whole batch when world
+    is 1): the train step, the mix, the CLAP step, the evaluator. Returns
+    (results, loss and flat vectors) on the CPU."""
+    import torch
+
+    from lass_torch.clap_pretrain import build_task
+    from lass_torch.evaluation.dcase import (
+        DCASEEvaluator, SeparationInference)
+    from lass_torch.models.resunet import ResUNet30
+
+    def rows(x):
+        b = x.shape[0] // world
+        return x[rank * b:(rank + 1) * b].to(device)
+
+    def flat(tensors):
+        return torch.cat([t.detach().float().reshape(-1)
+                          for t in tensors]).cpu()
+
+    out = {}
+    task = parity_separator(device)
+    batch, waves = parity_batches()
+    before = flat(p for p in task.model.parameters())
+    m = task.train_step_premixed({k: rows(v) for k, v in batch.items()})
+    sd = task.model.state_dict()
+    out["sep"] = {"loss": float(m["train_loss"]), "params0": before,
+                  "grads": flat(p.grad for p in task.model.parameters()),
+                  "params": flat(p for p in task.model.parameters()),
+                  "bn": flat(v for k, v in sorted(sd.items())
+                             if "running_" in k)}
+    gen = torch.Generator(device=device).manual_seed(31)
+    mixtures, segments = task.mix(rows(waves), gen)
+    out["mix"] = {"mixtures": mixtures.cpu(), "segments": segments.cpu()}
+    del task, m, sd
+    args = clap_args("HTSAT-base", "--warmup", "1", "--wd", "10")
+    ctask = build_task(args, device)
+    cbatch = clap_batch(PARALLEL_CLAP_BATCH, "cpu", seed=32)
+    before = flat(p for p in ctask.parameters())
+    m = ctask.train_step({k: rows(v) for k, v in cbatch.items()})
+    sd = ctask.state_dict()
+    out["clap"] = {"loss": float(m["contrastive_loss"]), "params0": before,
+                   "grads": flat(p.grad for p in ctask.parameters()),
+                   "params": flat(p for p in ctask.parameters()),
+                   "bn": flat(v for k, v in sorted(sd.items())
+                              if "running_" in k)}
+    del ctask, m, sd
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    evaluator = DCASEEvaluator(16000, eval_csv, eval_dir,
+                               batch_size=PARALLEL_EVAL_BATCH,
+                               data_parallel=world > 1)
+    out["eval"] = evaluator(SeparationInference(
+        ResUNet30(), CaptionStub(), device=str(device)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(rank, world, ref_path, eval_csv, eval_dir):
+    """One rank of phase 11(a) (``run_local_ranks``): its run against the
+    one-process reference at ``ref_path``; returns the errors, a checksum
+    of its updated parameters and its kernel launches."""
+    import torch
+
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_kernel_counts()
+    got = parity_run(device, rank, world, eval_csv, eval_dir)
+    ref = torch.load(ref_path, weights_only=True)
+    errs = {}
+    for path in ("sep", "clap"):
+        g, r = got[path], ref[path]
+        errs[path] = {"loss": abs(g["loss"] - r["loss"]) / abs(r["loss"])}
+        for key in ("grads", "params", "bn"):
+            a, b = g[key].to(device).double(), r[key].to(device).double()
+            errs[path][key] = float((a - b).norm() / b.norm())
+        errs[path]["params_checksum"] = float(g["params"].double().sum())
+    b = PARALLEL_SEP_BATCH // world
+    errs["mix"] = max(float((got["mix"][k] - ref["mix"][k][
+        rank * b:(rank + 1) * b]).abs().max()) for k in ("mixtures",
+                                                          "segments"))
+    errs["eval_db"] = max(abs(x - y) for x, y in zip(got["eval"],
+                                                      ref["eval"]))
+    errs["eval"] = got["eval"]
+    errs["launches"] = kernel_counts()
+    return errs
+
+
+def parity_on_ranks(build_dir):
+    """Phase 11(a) (module docstring). Returns its results and the ranks'
+    launches summed."""
+    import torch
+
+    from lass_torch.data.synth import make_synth_eval_set
+    from lass_torch.parallel.host import run_local_ranks
+
+    world, backend = parallel_world()
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        eval_dir = os.path.join(root, "eval")
+        eval_csv = make_synth_eval_set(eval_dir, num_rows=PARALLEL_EVAL_ROWS,
+                                       seconds=10.0, seed=33)
+        start = time.perf_counter()
+        ref = parity_run(torch.device("cuda"), 0, 1, eval_csv, eval_dir)
+        # how far one process's step moves the parameters: a wrong update
+        # on the ranks shows only where this is well above the limit
+        steps = {path: float((ref[path]["params"] - ref[path].pop("params0")
+                              ).double().norm()
+                             / ref[path]["params"].double().norm())
+                 for path in ("sep", "clap")}
+        ref_path = os.path.join(root, "reference.pt")
+        torch.save(ref, ref_path)
+        ref_s = time.perf_counter() - start
+        del ref
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        ranks = run_local_ranks(parallel_rank, world,
+                                (ref_path, eval_csv, eval_dir),
+                                backend=backend, timeout_s=900)
+        ranks_s = time.perf_counter() - start
+    worst = {path: {key: max(r[path][key] for r in ranks)
+                    for key in ("loss", "grads", "params", "bn")}
+             for path in ("sep", "clap")}
+    res = {"world": world, "backend": backend, "rel_err": worst,
+           "step_size": steps,
+           "mix_abs": max(r["mix"] for r in ranks),
+           "eval_db": max(r["eval_db"] for r in ranks),
+           "eval": ranks[0]["eval"],
+           "b1_launches_per_rank": [r["launches"]["apply_complex_mask_ri"]
+                                    for r in ranks],
+           "seconds": {"one_rank": ref_s, "ranks": ranks_s}}
+    log(f"phase 11a: {world} ranks over {backend} on "
+        f"{torch.cuda.device_count()} card(s) against one process, float32,"
+        f" TF32 off: ResUNet30 premixed step of {PARALLEL_SEP_BATCH} x 10 s "
+        f"rel err {worst['sep']}; global mix max abs {res['mix_abs']:.2e}; "
+        f"CLAP HTSAT-base + RoBERTa-base step of {PARALLEL_CLAP_BATCH} x 10 s"
+        f" rel err {worst['clap']}; evaluator over {PARALLEL_EVAL_ROWS} clips "
+        f"{res['eval']}, max |dB| difference {res['eval_db']:.2e}; B1 "
+        f"launches per rank {res['b1_launches_per_rank']}; the one-process "
+        f"steps move the parameters by {steps} of their norm (at least "
+        f"{10 * PARALLEL_REL}); {ref_s:.1f} s one process, {ranks_s:.1f} s "
+        f"the ranks")
+    if min(steps.values()) < 10 * PARALLEL_REL:
+        raise AssertionError("a step moves the parameters too little for "
+                             "the parameter comparison to see it")
+    for path in ("sep", "clap"):
+        sums = {r[path]["params_checksum"] for r in ranks}
+        if len(sums) != 1:
+            raise AssertionError(f"{path}: the ranks' parameters differ")
+        e = worst[path]
+        loss_limit = PARALLEL_LOSS_REL if path == "clap" else PARALLEL_REL
+        if e["loss"] > loss_limit or max(
+                e["grads"], e["params"], e["bn"]) > PARALLEL_REL:
+            raise AssertionError(f"{path}: {world} ranks differ from one "
+                                 f"process: {e}")
+    if res["mix_abs"] > PARALLEL_MIX_ABS or res["eval_db"] > PARALLEL_EVAL_DB:
+        raise AssertionError("the global mix or the sharded evaluator "
+                             "differs from one process")
+    batches = -(-PARALLEL_EVAL_ROWS // PARALLEL_EVAL_BATCH)
+    expect = [1 + len(range(batches)[r::world]) for r in range(world)]
+    if res["b1_launches_per_rank"] != expect:
+        raise AssertionError(f"B1 launches per rank "
+                             f"{res['b1_launches_per_rank']}, expected "
+                             f"{expect}")
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name, *_ in KERNELS}
+    return res, launches
+
+
+def run_torchrun_train(workspace, config, cards, counts_path, profile_path):
+    """``python -m torch.distributed.run --nproc_per_node <cards> -m
+    lass_torch.train``; returns its metrics by step, checkpoint steps and
+    directory, rank 0's kernel launches, the profile and seconds."""
+    from lass_torch.parallel.host import free_port
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(cards), "--master_addr", "localhost",
+           "--master_port", str(free_port()), "-m", "lass_torch.train",
+           "--workspace", workspace, "--config_yaml", config,
+           "--resume_checkpoint_path", "", "--max_steps",
+           str(PARALLEL_CLI_STEPS), "--log_every", "1", "--launch_counts",
+           counts_path, "--profile", profile_path]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun training failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    stem = os.path.splitext(os.path.basename(config))[0]
+    sub = os.path.join("train", f"{stem},devices={cards}")
+    metrics = {}
+    with open(os.path.join(workspace, "tf_logs", sub, "metrics.jsonl")) as f:
+        for record in map(json.loads, f):
+            metrics.setdefault(record["step"], {}).update(record)
+    ckpt_dir = os.path.join(workspace, "checkpoints", sub)
+    steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt_dir)
+                   if n.endswith(".ckpt"))
+    with open(counts_path) as f:
+        counts = json.load(f)
+    with open(profile_path) as f:
+        profile = json.load(f)
+    return metrics, steps, ckpt_dir, counts, profile, seconds
+
+
+def torchrun_training(build_dir):
+    """Phase 11(b) (module docstring). Returns its results and launches."""
+    import numpy as np
+    import torch
+
+    from lass_torch.config import load_config
+    from lass_torch.convert.checkpoint_io import load_ss_model
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.train.loop import Trainer
+
+    cards = torch.cuda.device_count()
+    datafile = make_synth_corpus(os.path.join(build_dir, "train_corpus"),
+                                 num_clips=4 * TRAIN_BATCH + 8,
+                                 seconds_min=8.0, seconds_max=14.0, seed=0)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        config = write_train_config(
+            os.path.join(root, "config.yaml"), datafile,
+            batch_size=TRAIN_BATCH, segment_seconds=10, num_workers=8,
+            save_step_frequency=2, compute_dtype="bfloat16")
+        metrics, steps, ckpt_dir, counts, profile, seconds = \
+            run_torchrun_train(os.path.join(root, "run"), config, cards,
+                               os.path.join(root, "counts.json"),
+                               os.path.join(root, "profile.json"))
+        losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+        rates = [metrics[k]["steps_per_sec"] for k in sorted(metrics)]
+        log(f"phase 11b: torch.distributed.run, {cards} card(s) x "
+            f"{TRAIN_BATCH} x 10 s bf16: steps {sorted(metrics)}, losses "
+            f"{losses}, steps/s per card {rates}; profiled steps "
+            f"{profile['steps']} in {profile['wall_s']:.3f} s: collectives "
+            f"{profile['collective_share']:.2%} of it, BatchNorm's "
+            f"collectives {profile['bn_collective_share']:.2%} "
+            f"({profile['bn_collective_calls']} calls); directory "
+            f"{os.path.basename(os.path.dirname(ckpt_dir + '/'))}, rank 0's "
+            f"checkpoints {steps}; rank 0's launches {counts}; "
+            f"{seconds:.1f} s")
+        if sorted(metrics) != list(range(1, PARALLEL_CLI_STEPS + 1)) or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f"torchrun training metrics: {metrics}")
+        if steps != [1, 2, 4] or not ckpt_dir.endswith(f",devices={cards}"):
+            raise AssertionError(f"checkpoints {steps} in {ckpt_dir}")
+        expect = {name: 0 for name, *_ in KERNELS}
+        expect["apply_complex_mask_ri"] = PARALLEL_CLI_STEPS
+        if counts != expect:
+            raise AssertionError(f"rank 0 launched {counts}, expected "
+                                 f"{expect}")
+        reset_kernel_counts()
+        trainer = Trainer(config, os.path.join(root, "resumed"),
+                          resume_checkpoint_path=os.path.join(ckpt_dir,
+                                                              "2.ckpt"),
+                          device="cuda", log_every=1)
+        if trainer.task.step != 2:
+            raise AssertionError(f"resumed at step {trainer.task.step}")
+        trainer.fit(max_steps=PARALLEL_CLI_STEPS)
+        with open(os.path.join(trainer.tf_logs_dir, "metrics.jsonl")) as f:
+            resumed = {r["step"]: r["train_loss"] for r in map(json.loads, f)}
+        rel = {k: abs(v - metrics[k]["train_loss"])
+               / abs(metrics[k]["train_loss"]) for k, v in resumed.items()}
+        cfg = load_config(config)
+        served = load_ss_model(cfg, os.path.join(ckpt_dir, "4.ckpt"),
+                               query_encoder=trainer.query_encoder,
+                               device="cuda")
+        serve(served, [SERVE_REQUESTS[0]])
+        launches = kernel_counts()
+        log(f"its step-2 checkpoint in a single-process Trainer: steps "
+            f"{sorted(resumed)}, losses {list(resumed.values())} (rel err "
+            f"against the {cards}-card run's {rel}); the step-4 checkpoint "
+            f"served one request; launches {launches}")
+        if sorted(resumed) != [3, 4] or \
+                not np.isfinite(list(resumed.values())).all():
+            raise AssertionError(f"the resumed Trainer's losses: {resumed}")
+        del trainer, served
+        torch.cuda.empty_cache()
+    for name in launches:
+        launches[name] += counts[name]
+    return {"cards": cards, "losses": losses, "steps_per_s_per_card": rates,
+            "profile": profile, "checkpoints": steps,
+            "directory": os.path.basename(ckpt_dir),
+            "resumed_losses": resumed, "resumed_rel_err": rel,
+            "seconds": seconds}, launches
+
+
+def codec_times(reps=10, plain_reps=3):
+    """Phase 11(c): ms to decode a CODEC_SECONDS mono 48 kHz clip, WAV
+    (PCM16) and FLAC, through the native decoders (median of ``reps``,
+    after the first call, which builds them) and the numpy ones (median
+    of ``plain_reps``); the outputs bitwise equal."""
+    import numpy as np
+
+    from lass_torch.audio import flac, io
+    from lass_torch.native import library_path
+
+    rng = np.random.default_rng(34)
+    n = int(CODEC_SECONDS * 48000)
+    t = np.arange(n) / 48000.0
+    clip = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)[None]
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "clip.wav")
+        io.write_wav(path, clip, 48000)
+        with open(path, "rb") as f:
+            payloads = {"wav": f.read(),
+                        "flac": flac.encode_flac(clip, 48000)}
+    plain = {"wav": io.read_wav_bytes_plain, "flac": flac.decode_flac_bytes}
+    start = time.perf_counter()
+    io.read_audio_bytes(payloads["wav"])
+    build_s = time.perf_counter() - start
+    out = {"build_s": build_s, "library": os.path.basename(library_path())}
+
+    def median_ms(fn, payload, n_reps):
+        times, result = [], None
+        for _ in range(n_reps):
+            start = time.perf_counter()
+            result = fn(payload)
+            times.append(time.perf_counter() - start)
+        return statistics.median(times) * 1e3, result
+
+    for fmt, payload in payloads.items():
+        ms, (got, sr) = median_ms(io.read_audio_bytes, payload, reps)
+        plain_ms, (ref, sr_ref) = median_ms(plain[fmt], payload, plain_reps)
+        if sr != sr_ref or not np.array_equal(got, ref):
+            raise AssertionError(f"{fmt}: the native decoder differs from "
+                                 f"numpy")
+        out[fmt] = {"native_ms": ms, "numpy_ms": plain_ms,
+                    "bytes": len(payload)}
+    log(f"phase 11c: decode one {CODEC_SECONDS:.0f} s mono 48 kHz clip: WAV "
+        f"native {out['wav']['native_ms']:.3f} ms, numpy "
+        f"{out['wav']['numpy_ms']:.3f} ms; FLAC native "
+        f"{out['flac']['native_ms']:.3f} ms, numpy "
+        f"{out['flac']['numpy_ms']:.1f} ms (bitwise equal; first call with "
+        f"the g++ build {build_s:.2f} s)")
+    return out
+
+
+def data_parallel(build_dir):
+    """Phase 11 (module docstring). Returns (results, launches)."""
+    start = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+    cli, launches = torchrun_training(build_dir)
+    lap("torchrun")
+    codec = codec_times()
+    flac_cli = RESULTS.get("clap", {}).get("cli_flac")
+    if flac_cli:
+        log(f"phase 10's clap_pretrain CLI over FLAC shards (native "
+            f"decoder), {CLAP_FLAC_BATCH} x 10 s: steps/s "
+            f"{flac_cli['steps_per_s']}, decode s {flac_cli['decode_s']}, "
+            f"load s {flac_cli['load_s']}")
+    lap("codec")
+    parity, parity_launches = parity_on_ranks(build_dir)
+    lap("parity")
+    for name in launches:
+        launches[name] += parity_launches[name]
+    results = {"parity": parity, "torchrun": cli, "codec": codec,
+               "phase_s": time.perf_counter() - start, "seconds": seconds}
+    log(f"phase 11: {results['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return results, launches
+
+
+def main():
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Drive and check the "
+                                     "PyTorch port on the card(s).")
+    parser.add_argument("--phase", type=int, choices=[11], default=None,
+                        help="run phases 1, 2 and this one only")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2520,6 +2990,13 @@ def main():
     log(f"kernel build + load: {time.perf_counter() - start:.1f} s "
         f"(nvcc {_build.last_build_seconds:.1f} s)")
 
+    build_dir = os.path.join(REPO, "lass_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    if args.phase == 11:
+        RESULTS["parallel"], RESULTS["launches_phase11"] = data_parallel(
+            build_dir)
+        return finish(torch, details="chip_smoke_phase11.json")
+
     # 3. kernels vs plain; B2 has no caller in either package, so this
     # phase is its path: its launches are counted here
     mask_err = check_mask_kernel("cuda")
@@ -2531,8 +3008,6 @@ def main():
     torch.cuda.empty_cache()
 
     # 4. serve: the default configuration, then A and B
-    build_dir = os.path.join(REPO, "lass_torch", "_build")
-    os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_dir:
         cfg, sep = build_server("cuda", ckpt_dir)
     log(f"server: ResUNet30 {cfg.model.compute_dtype}, "
@@ -2657,6 +3132,12 @@ def main():
     # 10. CLAP pretraining and probing (no kernel of B1-B7 on these paths)
     RESULTS["clap"] = clap_pretraining(build_dir)
 
+    # 11. data parallelism: ranks against one process, torchrun, the codec
+    parallel, parallel_launches = data_parallel(build_dir)
+    for name, n in parallel_launches.items():
+        launches[name] += n
+    RESULTS.update(parallel=parallel, launches_phase11=parallel_launches)
+
     kernels = []
     for name, _, _, source, replaces in KERNELS:
         row = {"name": name, "route": "cuda", "source": source,
@@ -2689,12 +3170,18 @@ def main():
         raise AssertionError(f"a kernel was not launched: " + ", ".join(
             f"{k['name']} {k['launches']}" for k in kernels))
     RESULTS["kernels"] = kernels
-    RESULTS["card"] = card_line()
-    details = os.path.join(REPO, "chiprun_out", "chip_smoke.json")
-    os.makedirs(os.path.dirname(details), exist_ok=True)
-    with open(details, "w") as f:
-        json.dump(RESULTS, f, indent=1)
     print(json.dumps({"kernels": kernels}))
+    return finish(torch)
+
+
+def finish(torch, details="chip_smoke.json"):
+    """Write every result to chiprun_out/``details``; print the card's
+    line and the last line."""
+    RESULTS["card"] = card_line()
+    path = os.path.join(REPO, "chiprun_out", details)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(RESULTS, f, indent=1, default=str)
     print(RESULTS["card"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,10 @@ copy of its pure-numpy code; decode: full spec subset; encode: minimal).
 
 The reference's webdataset pipeline decodes FLAC tar members via
 ``wds.torch_audio`` (models/CLAP/training/data.py), and LAION-audio-style
-shards hold FLAC. This is the port's only FLAC decoder: the JAX package's
-native C++ one (native/lassio.cpp) is a later slice. The small encoder
-authors test vectors and synthetic shards (FLAC is lossless: round trips
-are bit-exact).
+shards hold FLAC. The port reads FLAC through its native decoder
+(``lass_torch.native``); ``decode_flac_bytes`` here is its plain version,
+which the tests hold it to. The small encoder authors test vectors and
+synthetic shards (FLAC is lossless: round trips are bit-exact).
 
 Decoder coverage: fixed + LPC subframes (all orders), constant/verbatim,
 rice residuals (4- and 5-bit parameters, escape partitions), wasted

@@ -1,15 +1,23 @@
-"""Minimal dependency-free RIFF/WAVE codec (the pure-Python path of
-lass_tpu/audio/io.py): PCM 8/16/24/32-bit and IEEE float32/64, mono or
-multi-channel, returning float32 in [-1, 1] shaped (channels, samples);
-FLAC through ``lass_torch.audio.flac`` (the JAX package's native C++
-decoder is not ported: both formats decode in Python here).
+"""Audio codec (counterpart of lass_tpu/audio/io.py): WAV (PCM 8/16/24/32-bit
+and IEEE float32/64, mono or multi-channel) and FLAC, decoded to float32 in
+[-1, 1] shaped (channels, samples), and a WAV writer.
+
+``read_wav``, ``read_wav_bytes``, ``read_audio`` and ``read_audio_bytes``
+decode through the native decoders (``lass_torch.native``, built with g++
+at first use); a failed build raises, with no fallback. The numpy
+decoders, ``read_wav_bytes_plain`` here and
+``lass_torch.audio.flac.decode_flac_bytes``, are the plain versions the
+tests hold the native ones to, bit for bit.
 """
 from __future__ import annotations
 
+import io as _io
 import struct
 from typing import Tuple
 
 import numpy as np
+
+from lass_torch import native
 
 _PCM = 1
 _IEEE_FLOAT = 3
@@ -17,19 +25,26 @@ _EXTENSIBLE = 0xFFFE
 
 
 def read_wav(path: str, mono: bool = False) -> Tuple[np.ndarray, int]:
-    """Returns (data (channels, samples) float32 in [-1, 1], sample_rate)."""
-    data, sr = _read_wav_py(path)
-    if mono and data.shape[0] > 1:
-        data = data.mean(axis=0, keepdims=True)
-    return data, sr
+    """Returns (data (channels, samples) float32 in [-1, 1], sample_rate);
+    one channel, the channels' mean, with ``mono``."""
+    with open(path, "rb") as f:
+        payload = f.read()
+    try:
+        return native.decode_wav(payload, mono)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from exc
 
 
 def read_wav_bytes(payload: bytes, mono: bool = False
                    ) -> Tuple[np.ndarray, int]:
     """In-memory decode (the tar-shard pipeline, data/shards.py): read_wav's
     contract from a bytes payload."""
-    import io as _io
+    return native.decode_wav(payload, mono)
 
+
+def read_wav_bytes_plain(payload: bytes, mono: bool = False
+                         ) -> Tuple[np.ndarray, int]:
+    """``read_wav_bytes`` in numpy (the plain version)."""
     data, sr = _read_wav_fileobj(_io.BytesIO(payload), "<bytes>")
     if mono and data.shape[0] > 1:
         data = data.mean(axis=0, keepdims=True)
@@ -52,19 +67,11 @@ def read_audio_bytes(payload: bytes, mono: bool = False
     """In-memory format-sniffing decode (the tar shards: the reference's
     wds.torch_audio decodes FLAC members of LAION-audio shards)."""
     if payload[:4] == b"fLaC":
-        from lass_torch.audio.flac import decode_flac_bytes
-
-        return decode_flac_bytes(payload, mono)
+        return native.decode_flac(payload, mono)
     if payload[:4] == b"RIFF":
-        return read_wav_bytes(payload, mono)
+        return native.decode_wav(payload, mono)
     raise ValueError("unrecognized audio container (expected RIFF/WAVE "
                      "or fLaC magic)")
-
-
-def _read_wav_py(path: str) -> Tuple[np.ndarray, int]:
-    """Pure-python reference decoder."""
-    with open(path, "rb") as f:
-        return _read_wav_fileobj(f, path)
 
 
 def _read_wav_fileobj(f, path: str) -> Tuple[np.ndarray, int]:

@@ -16,9 +16,16 @@ retrieval: {...}"). Captions go through the RoBERTa BPE tokenizer when its
 vocab is installed, else the whitespace hash tokenizer, padded to the
 longest in the batch up to ``--max_text_len``.
 
-One card, float32: the JAX CLI's mesh and global-batch upload become one
-upload of the batch. Checkpoints (step 1 and every ``--save_every``
-steps) go under ``WS/checkpoints/clap_pretrain/clap_pretrain,devices=1/``;
+Float32. On several cards (``python -m torch.distributed.run
+--nproc_per_node N -m lass_torch.clap_pretrain ...``), as the JAX CLI over
+its mesh: ``--batch_size`` is the global batch, each rank loading
+``batch_size / N`` rows of its own shards (or its strided share of the
+datafiles) and tokenizing its own captions; the step is the global
+batch's (``lass_torch.tasks.clap_pretrain``); retrieval embeds each
+rank's share of the val clips and gathers the embeddings; rank 0 alone
+logs, writes metrics and checkpoints and prints. Checkpoints (step 1 and
+every ``--save_every`` steps) go under
+``WS/checkpoints/clap_pretrain/clap_pretrain,devices=N/``;
 as in the JAX CLI there is no resume flag (restore from Python with
 ``lass_torch.train.checkpoint.restore_file`` on ``build_task``'s task).
 Metrics go to ``WS/tf_logs/.../metrics.jsonl`` at step 1 and every
@@ -133,18 +140,33 @@ def to_device(waveform, texts, tokenizer, max_text_len, device):
                 np.asarray(tok["attention_mask"], np.int64)).to(device)}
 
 
+def rank_batch(args) -> int:
+    """This rank's rows of the global ``--batch_size``."""
+    from lass_torch.parallel.host import host_info
+
+    _, world = host_info()
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} is not divisible "
+                         f"by the {world} ranks")
+    return args.batch_size // world
+
+
 def shard_batches(args, clip_samples, stats):
-    """Epoch-looped tar-shard batches (waveform, captions); ``stats``
-    accumulates the decode seconds."""
+    """Epoch-looped tar-shard batches (waveform, captions) of this rank's
+    shards; ``stats`` accumulates the decode seconds."""
     from lass_torch.data.shards import TarShardDataset, shard_epochs
+    from lass_torch.parallel.host import host_info
+
+    rank, world = host_info()
 
     def dataset(epoch):
         return TarShardDataset(
-            shards=args.train_shards, batch_size=args.batch_size,
+            shards=args.train_shards, batch_size=rank_batch(args),
             max_len=clip_samples, data_filling=args.data_filling,
             data_truncating=args.data_truncating,
             text_augment_selection=args.text_augment_selection,
-            num_workers=args.num_workers, seed=args.seed, epoch=epoch)
+            num_workers=args.num_workers, seed=args.seed, epoch=epoch,
+            process_index=rank, process_count=world)
 
     return ((b["waveform"], b["raw_text"])
             for b in shard_epochs(dataset, stats))
@@ -158,34 +180,43 @@ def datafile_batches(loader):
 
 def evaluate(args, task, tokenizer, device):
     """Retrieval metrics over ``--val_datafiles`` (whole batches of
-    ``--batch_size``, as the JAX CLI); {} without them."""
+    ``--batch_size``, as the JAX CLI); {} without them. On several ranks
+    each embeds whole batches of its strided share and the embeddings are
+    gathered (every rank gets the metrics)."""
     import numpy as np
+    import torch
 
     from lass_torch.data.datafiles import AudioTextDataset
     from lass_torch.data.datamodule import DataModule
     from lass_torch.evaluation.retrieval import retrieval_metrics
+    from lass_torch.parallel.host import gather_rows, host_info
 
     if not args.val_datafiles:
         return {}
+    rank, world = host_info()
     val = AudioTextDataset(datafiles=args.val_datafiles,
                            sampling_rate=SAMPLE_RATE,
                            max_clip_len=args.clip_seconds)
+    batch = rank_batch(args)
+    share = len(val) // world
     a_all, t_all, seen = [], [], 0
-    with DataModule(val, batch_size=args.batch_size,
-                    num_workers=args.num_workers,
-                    seed=1).train_dataloader() as loader:
-        for batch in loader:
-            at = batch["audio_text"]
+    with DataModule(val, batch_size=batch, num_workers=args.num_workers,
+                    seed=1, process_index=rank,
+                    process_count=world).train_dataloader() as loader:
+        for b in loader:
+            at = b["audio_text"]
             data = to_device(at["waveform"][:, 0], at["text"], tokenizer,
                              args.max_text_len, device)
             a, t = task.embed(data["waveform"], data["input_ids"],
                               data["attention_mask"])
-            a_all.append(a.double().cpu().numpy())
-            t_all.append(t.double().cpu().numpy())
+            a_all.append(a)
+            t_all.append(t)
             seen += len(at["text"])
-            if seen + args.batch_size > len(val):
+            if seen + batch > share:
                 break
-    return retrieval_metrics(np.concatenate(a_all), np.concatenate(t_all))
+    a, t = (gather_rows(torch.cat(x)).double().cpu().numpy()
+            for x in (a_all, t_all))
+    return retrieval_metrics(a, t)
 
 
 def main(argv=None):
@@ -195,15 +226,17 @@ def main(argv=None):
 
     import torch
 
+    from lass_torch.parallel.host import host_info, initialize_distributed
     from lass_torch.train.checkpoint import CheckpointManager
     from lass_torch.train.cli_loop import run_steps
     from lass_torch.train.loop import get_dirs
     from lass_torch.utils.logging import MetricsLogger, create_logging
 
-    device = torch.device(args.device)
+    device = initialize_distributed(device=args.device)
+    rank, world = host_info()
     ckpt_dir, logs_dir, tf_logs_dir, _ = get_dirs(
-        args.workspace, "clap_pretrain", "clap_pretrain.yaml", 1)
-    create_logging(logs_dir)
+        args.workspace, "clap_pretrain", "clap_pretrain.yaml", world)
+    create_logging(logs_dir, main_process=rank == 0)
     clip_samples = int(SAMPLE_RATE * args.clip_seconds)
     tokenizer = make_tokenizer()
     task = build_task(args, device)
@@ -222,9 +255,10 @@ def main(argv=None):
         dataset = AudioTextDataset(datafiles=args.datafiles,
                                    sampling_rate=SAMPLE_RATE,
                                    max_clip_len=args.clip_seconds)
-        loader = DataModule(dataset, batch_size=args.batch_size,
-                            num_workers=args.num_workers,
-                            seed=args.seed).train_dataloader()
+        loader = DataModule(dataset, batch_size=rank_batch(args),
+                            num_workers=args.num_workers, seed=args.seed,
+                            process_index=rank,
+                            process_count=world).train_dataloader()
         raw = datafile_batches(loader)
         n_train = len(dataset)
     logging.info("clap_pretrain: %s, %d train items, batch %d, %s",
@@ -233,7 +267,8 @@ def main(argv=None):
                          device) for waveform, texts in raw)
     try:
         run_steps(task, batches, CheckpointManager(ckpt_dir, args.save_every),
-                  MetricsLogger(tf_logs_dir), log_every=args.log_every,
+                  MetricsLogger(tf_logs_dir, enabled=rank == 0),
+                  log_every=args.log_every,
                   max_steps=args.max_steps, eval_every=args.eval_every,
                   evaluate=(lambda: evaluate(args, task, tokenizer, device))
                   if args.val_datafiles else None, stats=stats,
@@ -242,8 +277,11 @@ def main(argv=None):
         if loader is not None:
             loader.close()
     if args.val_datafiles:
-        print("final retrieval:", evaluate(args, task, tokenizer, device))
-    print(f"finished at step {task.step}")
+        final = evaluate(args, task, tokenizer, device)
+        if rank == 0:
+            print("final retrieval:", final)
+    if rank == 0:
+        print(f"finished at step {task.step}")
 
 
 if __name__ == "__main__":

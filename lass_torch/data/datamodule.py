@@ -5,9 +5,11 @@ background producer thread a few batches ahead.
 Each epoch's order is ``np.random.default_rng(seed + epoch)``'s shuffle
 and each clip's crop draws from ``np.random.default_rng((seed, epoch,
 index))``, the same numpy calls as the JAX package, so both order and
-crop batches identically for one seed. Items that fail to load are
-skipped and the batch is topped up from the rest of the epoch, so every
-batch is full.
+crop batches identically for one seed. With ``process_count`` > 1 every
+process shuffles the same global permutation and takes its strided share
+(``lass_torch.parallel.host.shard_indices_for_host``). Items that fail to
+load are skipped and the batch is topped up from the rest of the share,
+so every batch is full.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List
 
 import numpy as np
+
+from lass_torch.parallel.host import shard_indices_for_host
 
 
 def collate(items: List[Dict]) -> Dict:
@@ -33,18 +37,23 @@ def collate(items: List[Dict]) -> Dict:
 
 class DataModule:
     def __init__(self, train_dataset, batch_size: int, num_workers: int = 8,
-                 seed: int = 1234, prefetch: int = 4):
+                 seed: int = 1234, prefetch: int = 4,
+                 process_index: int = 0, process_count: int = 1):
+        """``batch_size`` is the per-process batch."""
         self.train_dataset = train_dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed + epoch)
         idx = np.arange(len(self.train_dataset))
         rng.shuffle(idx)
-        return idx
+        return shard_indices_for_host(idx, self.process_index,
+                                      self.process_count)
 
     def _iter_batches(self, skip_batches: int = 0) -> Iterator[Dict]:
         epoch = 0

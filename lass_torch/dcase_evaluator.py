@@ -6,8 +6,13 @@ SI-SDR.
         --eval_indexes lass_synthetic_validation.csv \\
         --audio_dir lass_validation [--config_yaml config/audiosep_base.yaml]
         [--batch_size 16] [--quantize] [--config {default,A,B}] [--device cuda]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m lass_torch.dcase_evaluator --data_parallel ...
 
-Runs on the GPU unless ``--device cpu`` is given. ``--quantize`` runs the
+Runs on the GPU unless ``--device cpu`` is given. ``--data_parallel``
+under the launcher: one process per card, each separating a disjoint
+share of the eval batches; the per-clip metrics are gathered and rank 0
+prints the line one card would (not with ``--quantize``). ``--quantize`` runs the
 int8 separator (lass_torch/ops/quant.py), calibrated on the first four
 eval batches and packed on the last of them. As in the root CLI, the
 caption encoder has random weights unless a CLAP pack is loaded.
@@ -23,26 +28,30 @@ def evaluate(evaluator, checkpoint_path: str,
     returns (SI-SDR, SDRi, SDR)."""
     from lass_torch.config import load_config
     from lass_torch.convert.checkpoint_io import load_ss_model
+    from lass_torch.parallel.host import host_info
 
+    if quantize and evaluator.data_parallel:
+        raise NotImplementedError("--quantize with --data_parallel (nor in "
+                                  "the root CLI)")
     cfg = load_config(config_yaml)
     pl_model = load_ss_model(cfg, checkpoint_path, query_encoder, device,
                              quantize=quantize, config=config)
     if quantize:
         evaluator.calibrate(pl_model)
-    print("-------  Start Evaluation  -------")
+    main_process = host_info()[0] == 0
+    if main_process:
+        print("-------  Start Evaluation  -------")
     sisdr, sdri, sdr = evaluator(pl_model)
-    print(f"SDR: {sdr:.3f}, SDRi: {sdri:.3f}, SISDR: {sisdr:.3f}")
-    print("-------------------------  Done  ---------------------------")
+    if main_process:
+        print(f"SDR: {sdr:.3f}, SDRi: {sdri:.3f}, SISDR: {sisdr:.3f}")
+        print("-------------------------  Done  ---------------------------")
     return sisdr, sdri, sdr
 
 
 def main(argv=None):
     from lass_torch.models.resunet import CONFIGS
 
-    parser = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="The root CLI's --data_parallel (eval batches sharded over "
-               "several devices) waits for the port's multi-card support.")
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkpoint_path", required=True)
     parser.add_argument("--config_yaml", default="config/audiosep_base.yaml")
     parser.add_argument("--eval_indexes",
@@ -56,18 +65,26 @@ def main(argv=None):
                         help="serving configuration (A and B run the fused "
                              "conv kernels; on the card they need "
                              "compute_dtype bfloat16)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="one process per card under python -m "
+                             "torch.distributed.run, each separating its "
+                             "share of the eval batches")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     from lass_torch.evaluation.dcase import DCASEEvaluator
+    from lass_torch.parallel.host import initialize_distributed
 
+    device = (initialize_distributed(device=args.device)
+              if args.data_parallel else args.device)
     evaluator = DCASEEvaluator(sampling_rate=16000,
                                eval_indexes=args.eval_indexes,
                                audio_dir=args.audio_dir,
-                               batch_size=args.batch_size)
+                               batch_size=args.batch_size,
+                               data_parallel=args.data_parallel)
     return evaluate(evaluator, args.checkpoint_path, args.config_yaml,
                     quantize=args.quantize, config=args.config,
-                    device=args.device)
+                    device=str(device))
 
 
 if __name__ == "__main__":

@@ -10,7 +10,12 @@
   and its captions are padded to batch_size, and ``fixed_len`` only grows
   (hop-rounded) when a longer clip arrives, so cuDNN's algorithm choices
   for the shape stay cached. ``calibrate`` is the int8 protocol: the
-  scales over the first batches, then one pack.
+  scales over the first batches, then one pack. With ``data_parallel``
+  in a process group (``lass_torch.parallel``), rank r separates batches
+  r, r + W, ... (each the batch one card would form, so its clips
+  separate exactly as there), the per-clip metrics are summed over the
+  ranks into the set's table in CSV order, and every rank returns the
+  one-card means.
 - ``SeparationInference``: a separator and a caption encoder on one
   device; ``separate`` (one batch), ``separate_long`` (chunked, on the
   device: ``lass_torch/models/chunk.py``), and ``calibrate`` / ``pack`` for
@@ -21,7 +26,7 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ from lass_torch.audio.resample import resample_np
 from lass_torch.evaluation.metrics import calculate_sdr, calculate_sisdr
 from lass_torch.models.chunk import ChunkConfig, chunk_inference_device
 from lass_torch.ops import quant
+from lass_torch.parallel.host import host_info, sum_over_ranks
 
 
 def load_mono(path: str, sampling_rate: int) -> np.ndarray:
@@ -65,8 +71,10 @@ class DCASEEvaluator:
                  eval_indexes: str = "lass_synthetic_validation.csv",
                  audio_dir: str = "lass_validation",
                  batch_size: int = 16,
-                 pad_seconds: float = 10.0):
+                 pad_seconds: float = 10.0,
+                 data_parallel: bool = False):
         self.sampling_rate = sampling_rate
+        self.data_parallel = data_parallel
         with open(eval_indexes) as f:
             self.eval_list = list(csv.reader(f))[1:]
         self.audio_dir = audio_dir
@@ -104,7 +112,11 @@ class DCASEEvaluator:
         (a model built with quantize=True), then one pack on the last of
         them (``SeparationInference.pack``). Several batches matter: the
         per-channel ranges are FiLM-conditioned and swing across queries,
-        and the amax accumulates over calls."""
+        and the amax accumulates over calls. Not with ``data_parallel``
+        (nor in lass_tpu)."""
+        if self.data_parallel:
+            raise NotImplementedError(
+                "int8 calibration with data_parallel evaluation")
         last = None
         for start in range(0, min(len(self.eval_list),
                                   num_batches * self.batch_size),
@@ -123,12 +135,13 @@ class DCASEEvaluator:
         .separate(mixtures (B, 1, L), conditions) -> (B, 1, L) numpy (see
         SeparationInference). Returns (mean SI-SDR, mean SDRi, mean SDR),
         the reference's order."""
-        sisdrs: List[float] = []
-        sdris: List[float] = []
-        sdrs: List[float] = []
+        rank, world = host_info() if self.data_parallel else (0, 1)
+        # per-clip (SI-SDR, SDRi, SDR), this rank's rows filled in
+        table = np.zeros((len(self.eval_list), 3))
         timing = dict.fromkeys(("load_s", "separate_s", "metrics_s"), 0.0)
 
-        for start in range(0, len(self.eval_list), self.batch_size):
+        starts = range(0, len(self.eval_list), self.batch_size)
+        for start in starts[rank::world]:
             t0 = time.perf_counter()
             sources, mixtures, captions = self._load_rows(
                 self.eval_list[start:start + self.batch_size])
@@ -146,16 +159,19 @@ class DCASEEvaluator:
                 est = separated[i, 0, :lengths[i]]
                 sdr_no_sep = calculate_sdr(ref=src, est=mix)
                 sdr = calculate_sdr(ref=src, est=est)
-                sdrs.append(sdr)
-                sdris.append(sdr - sdr_no_sep)
-                sisdrs.append(calculate_sisdr(ref=src, est=est))
+                table[start + i] = (calculate_sisdr(ref=src, est=est),
+                                    sdr - sdr_no_sep, sdr)
             timing["load_s"] += t1 - t0
             timing["separate_s"] += t2 - t1
             timing["metrics_s"] += time.perf_counter() - t2
 
+        if world > 1:
+            table = sum_over_ranks(table)
         self.timing = timing
-        return (float(np.mean(sisdrs)), float(np.mean(sdris)),
-                float(np.mean(sdrs)))
+        # each column's mean as one contiguous row: numpy's pairwise sum,
+        # as over a list of the clips' values
+        sisdr, sdri, sdr = table.T.copy().mean(axis=1)
+        return float(sisdr), float(sdri), float(sdr)
 
 
 class SeparationInference:

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from lass_torch.dsp.mel import LogMelConfig, log_mel_spectrogram
 from lass_torch.models.clap.fusion import fusion_block
 from lass_torch.nn.layers import BatchNorm
+from lass_torch.parallel.host import row_span
 from lass_torch.utils.precision import ieee_float32
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, which lass_tpu keeps
@@ -191,12 +192,14 @@ def draw_stripes(batch: int, size: int, width: int, count: int,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(starts, lengths), each (batch, count) int64 on the CPU: starts in
     [0, max(size - width, 1)), lengths in [0, width], the ranges of the
-    JAX package's ``_spec_augment``."""
-    starts = torch.randint(0, max(size - width, 1), (batch, count),
+    JAX package's ``_spec_augment``; drawn for the global batch
+    (``row_span``) and cut to this rank's rows."""
+    total, first = row_span(batch)
+    starts = torch.randint(0, max(size - width, 1), (total, count),
                            generator=generator)
-    lengths = torch.randint(0, width + 1, (batch, count),
+    lengths = torch.randint(0, width + 1, (total, count),
                             generator=generator)
-    return starts, lengths
+    return (starts[first:first + batch], lengths[first:first + batch])
 
 
 def stripe_keep(starts: torch.Tensor, lengths: torch.Tensor, size: int,

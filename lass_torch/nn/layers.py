@@ -6,15 +6,79 @@ and BatchNorm in eval folds its statistics into a float32 scale and shift
 that are cast to it at use (``lass_tpu/nn/layers.py`` BatchNorm). Train-mode
 BatchNorm is torch's own (momentum 0.01 as torch means it, unbiased running
 variance, eps 1e-5), computed in float32, over an activation of any rank.
-``dropout`` draws its mask from an explicit generator.
+In a process group (``lass_torch.parallel``) its statistics are those of
+the global batch, as under lass_tpu's data-sharded jit (the reference's
+sync_batchnorm): ``GlobalBatchNorm`` gathers the ranks' statistics in the
+forward pass and all-reduces the two grad sums in the backward pass, and
+every rank updates its running statistics identically.
+``dropout`` draws its mask from an explicit generator, at the global
+batch's shape in a process group (each rank keeps its rows).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lass_torch.parallel.host import gather_rows, is_distributed, row_span
+
+
+def _sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("lass::bn_collective"):
+        dist.all_reduce(x)
+    return x
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of a float32 (N, C, ...) activation over every
+    rank's rows: -> (y, batch mean, biased batch variance, global count).
+
+    Forward: each rank's (mean, sum of squared deviations, count) per
+    channel (Welford, ``torch.var_mean``) go to every rank in one
+    all-gather and combine exactly (Chan et al.), in float64; no E[x^2] -
+    E[x]^2 cancellation, which costs float32 1e-5 of the variance where a
+    channel's mean is ten times its spread. Backward: one all-reduce of
+    the two grad sums. The weight and bias grads it returns are the rank's
+    own sums, which the step's grad reduction combines
+    (``lass_torch.parallel.mesh``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = [1, c] + [1] * (x.dim() - 2)
+        var, mean = torch.var_mean(x, dims, unbiased=False)
+        count = x.numel() // c
+        local = torch.cat([mean, var * count, x.new_full((1,), count)])
+        with torch.profiler.record_function("lass::bn_collective"):
+            ranks = gather_rows(local[None])
+        ranks = ranks.double()
+        counts = ranks[:, 2 * c:]
+        n = counts.sum()
+        mean64 = (ranks[:, :c] * counts).sum(0) / n
+        m2 = (ranks[:, c:2 * c]
+              + counts * (ranks[:, :c] - mean64) ** 2).sum(0)
+        mean, var, n = mean64.float(), (m2 / n).float(), n.float()
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.mark_non_differentiable(mean, var, n)
+        return xhat * weight.view(shape) + bias.view(shape), mean, var, n
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        c = xhat.shape[1]
+        dims = [0, *range(2, xhat.dim())]
+        shape = [1, c] + [1] * (xhat.dim() - 2)
+        dbias, dweight = gy.sum(dims), (gy * xhat).sum(dims)
+        sums = _sum_over_ranks(torch.cat([dbias, dweight])) / n
+        dx = (gy - sums[:c].view(shape) - xhat * sums[c:].view(shape)) \
+            * (invstd * weight).view(shape)
+        return dx, dweight, dbias, None
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -36,9 +100,21 @@ class BatchNorm(nn.BatchNorm2d):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         return inv, self.bias - self.running_mean * inv
 
+    def _global_forward(self, h: torch.Tensor) -> torch.Tensor:
+        y, mean, var, n = GlobalBatchNorm.apply(h, self.weight, self.bias,
+                                                self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var * (n / (n - 1)), alpha=m)
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y = super().forward(x.float().movedim(self.dim, 1))
+            h = x.float().movedim(self.dim, 1)
+            y = (self._global_forward(h) if is_distributed()
+                 else super().forward(h))
             return y.movedim(1, self.dim).to(x.dtype)
         inv, shift = self.scale_shift()
         shape = [1] * x.dim()
@@ -50,9 +126,12 @@ def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout`` (keep with probability
     1 - p, scale by 1 / (1 - p)), its mask from ``generator`` (on x's
-    device; torch's default generator when None)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) >= p
+    device; torch's default generator when None), drawn at the global
+    batch's shape (``row_span``) and cut to this rank's rows."""
+    total, start = row_span(x.shape[0])
+    keep = torch.rand((total, *x.shape[1:]), generator=generator,
+                      device=x.device, dtype=torch.float32)[
+        start:start + x.shape[0]] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
 

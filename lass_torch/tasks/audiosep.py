@@ -7,6 +7,15 @@ semantics, momentum 0.01), L1 on the waveform, backward, AMSGrad step and
 LR-schedule step. The state is the task's model, optimizer, scheduler and
 step counter.
 
+In a process group (``lass_torch.parallel``) the batch is each rank's
+rows of the global batch and the step is the global batch's: the model
+runs under DistributedDataParallel (``model`` stays the bare module, for
+checkpoints and evaluation), BatchNorm takes global statistics, ``mix``
+gathers the ranks' waveforms in rank order, mixes the global batch with
+global-size draws from the generator (the same seed and state on every
+rank) and keeps this rank's rows, and the loss it returns is the global
+mean.
+
 Two step flavours, as in the JAX package:
 - ``train_step(batch, generator)``: batch = {'waveform', 'condition'}; the
   mixer draws from ``generator`` (text-only conditioning);
@@ -21,6 +30,8 @@ import torch
 
 from lass_torch.data.mixer import SegmentMixer
 from lass_torch.losses import get_loss_function
+from lass_torch.parallel.host import all_reduce_mean, gather_rows, local_rows
+from lass_torch.parallel.mesh import data_parallel
 from lass_torch.train.checkpoint import SeparatorCheckpoint
 
 
@@ -41,6 +52,7 @@ class AudioSepTask(SeparatorCheckpoint):
         scheduler from ``lass_torch.train.optim.build_optimizer`` over the
         model's parameters."""
         self.model = model
+        self.train_model = data_parallel(model)
         self.mixer = mixer
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -51,8 +63,8 @@ class AudioSepTask(SeparatorCheckpoint):
                 condition: torch.Tensor) -> Dict[str, torch.Tensor]:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model({"mixture": mixtures,
-                          "condition": condition.detach()})
+        out = self.train_model({"mixture": mixtures,
+                                "condition": condition.detach()})
         loss = self.loss_fn({"segment": out["waveform"][:, 0]},
                             {"segment": segments[:, 0]})
         loss.backward()
@@ -63,7 +75,8 @@ class AudioSepTask(SeparatorCheckpoint):
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {"train_loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        return {"train_loss": all_reduce_mean(loss.detach()),
+                "grad_norm": grad_norm.detach()}
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -81,7 +94,10 @@ class AudioSepTask(SeparatorCheckpoint):
 
     def mix(self, waveforms: torch.Tensor, generator: torch.Generator
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.mixer(_decode_wire(waveforms), generator)
+        """This rank's rows of the global batch's (mixtures, segments)."""
+        mixtures, segments = self.mixer(
+            gather_rows(_decode_wire(waveforms)), generator)
+        return local_rows(mixtures), local_rows(segments)
 
     @torch.no_grad()
     def eval_forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -16,8 +16,18 @@ over every parameter, the logit scales included (the chain decays every
 leaf), with the schedule's first update at index 0; a parameter off the
 loss's path (HTSAT's classification head) gets a zero grad, as optax
 hands it, so it decays too. The audio tower's train-mode draws come from
-a CPU generator seeded from (seed, step). One card: the cross-card gather of ClipLoss (loss.py:15-122) waits for
-multi-card training.
+a CPU generator seeded from (seed, step).
+
+In a process group (``lass_torch.parallel``) the step is the global
+batch's, as lass_tpu's data-sharded jit computes it: ``clip_loss`` gathers
+both embeddings over the ranks with this rank's rows keeping their graph
+(open_clip's gather_features with gather_with_grad=False, loss.py:27-113)
+and takes the G x G logits and the mean over the G rows, so every rank
+computes the same loss; the towers' grads, each rank's through its own
+rows, are summed over the ranks (``sum_gradients``), while the logit
+scales' are already whole on every rank. BatchNorm takes global
+statistics and the train-mode draws are drawn at the global batch's
+shape, each rank keeping its rows (``lass_torch.parallel.host.row_span``).
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lass_torch.parallel.host import gather_rows, host_info
+from lass_torch.parallel.mesh import sum_gradients
 from lass_torch.train.checkpoint import TaskCheckpoint
 
 INIT_LOGIT_SCALE = math.log(1 / 0.07)
@@ -38,12 +50,26 @@ def clip_loss(audio_embeds: torch.Tensor, text_embeds: torch.Tensor,
               logit_scale_a: torch.Tensor, logit_scale_t: torch.Tensor
               ) -> torch.Tensor:
     """Symmetric InfoNCE with two scales (open_clip/loss.py:229-247); row i
-    of each embedding is a true pair."""
+    of each embedding is a true pair. In a process group, over the global
+    batch (module docstring)."""
+    audio_embeds = global_rows(audio_embeds)
+    text_embeds = global_rows(text_embeds)
     labels = torch.arange(audio_embeds.shape[0], device=audio_embeds.device)
     logits_a = logit_scale_a.exp() * audio_embeds @ text_embeds.T
     logits_t = logit_scale_t.exp() * text_embeds @ audio_embeds.T
     return 0.5 * (F.cross_entropy(logits_a, labels)
                   + F.cross_entropy(logits_t, labels))
+
+
+def global_rows(x: torch.Tensor) -> torch.Tensor:
+    """The global batch of ``x`` with this rank's rows in autograd's graph
+    and the other ranks' as gathered values."""
+    rank, world = host_info()
+    if world == 1:
+        return x
+    full = gather_rows(x)
+    b = x.shape[0]
+    return torch.cat([full[:rank * b], x, full[(rank + 1) * b:]])
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -122,6 +148,8 @@ class CLAPPretrainTask(TaskCheckpoint):
             if p.grad is None:  # off the loss's path (HTSAT's tscam_conv):
                 # optax hands it a zero grad, so it decays
                 p.grad = torch.zeros_like(p)
+        sum_gradients([*self.audio_encoder.parameters(),
+                       *self.text_encoder.parameters()])
         self.optimizer.step()
         self.scheduler.step()
         with torch.no_grad():

@@ -21,10 +21,15 @@ def run_steps(task, batches: Iterator, ckpt, metrics, *, log_every: int,
     load_s (seconds waiting for ``batches``) and, with ``stats``, its
     decode_s (which the batches add to; reset here). ``evaluate()`` runs
     every ``eval_every`` steps, its dict logged and its time left out of
-    steps/s; the ``CheckpointManager`` ``ckpt`` saves where it says. On
-    every way out: the last save is waited for, the metrics closed and the
-    kernels' launch counts written to ``launch_counts_path`` (JSON)."""
+    steps/s; the ``CheckpointManager`` ``ckpt`` saves where it says (on
+    rank 0 of a process group). On every way out: the last save is waited
+    for, the metrics closed and the kernels' launch counts written to
+    ``launch_counts_path`` (JSON); after a normal end every rank waits
+    until rank 0's last checkpoint is on disk."""
+    from lass_torch.parallel.host import barrier, host_info
+
     train_step = train_step or task.train_step
+    main_process = host_info()[0] == 0
     pc = time.perf_counter
     t_last, steps_since, load_s = pc(), 0, 0.0
     try:
@@ -51,7 +56,7 @@ def run_steps(task, batches: Iterator, ckpt, metrics, *, log_every: int,
                 logging.info("eval @ %d: %s", step, r)
                 metrics.log(step, r)
                 t_last = pc()
-            if ckpt.should_save(step):
+            if main_process and ckpt.should_save(step):
                 ckpt.save_async(step, task)
     finally:
         ckpt.wait()
@@ -61,3 +66,4 @@ def run_steps(task, batches: Iterator, ckpt, metrics, *, log_every: int,
 
             with open(launch_counts_path, "w") as f:
                 json.dump(launch_counts(), f)
+    barrier()

@@ -1,4 +1,5 @@
-"""Training loop (counterpart of lass_tpu/train/loop.py), one card.
+"""Training loop (counterpart of lass_tpu/train/loop.py), on one card or
+on several with one process per card.
 
 Workspace layout (``get_dirs``), datafile dataset and batch loader, the
 separator, mixer, loss, AMSGrad optimizer and LR schedule, the frozen CLAP
@@ -26,7 +27,17 @@ evaluator on the training model) every ``train.evaluate_step_frequency``
 steps; its metrics go to ``metrics.jsonl`` and the statistics file, its
 time to ``timing['eval']``, and the steps/s windows leave it out.
 
-Not here yet (a later slice): data parallelism over several cards.
+Several cards (``lass_torch.parallel``; launch under ``python -m
+torch.distributed.run``, after ``initialize_distributed``): the directory
+is ``<config stem>,devices=<world size>``; each rank loads
+``batch_size_per_device`` rows of its strided share of every epoch, and
+the step is the global batch's (``AudioSepTask``: DDP, global BatchNorm
+statistics, the mix over the global batch, the global mean loss). Every
+rank restores a checkpoint; rank 0 alone logs, writes metrics.jsonl, the
+statistics and the checkpoints (the bare model, so one written at any
+world size resumes at any other and serves through ``load_ss_model``) and
+runs the eval hook, and every rank waits at the end of ``fit`` until rank
+0's last checkpoint is on disk.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from lass_torch.data.mixer import SegmentMixer
 from lass_torch.losses import get_loss_function
 from lass_torch.models.query_encoder import CLAPQueryEncoder
 from lass_torch.models.resunet import build_model
+from lass_torch.parallel.host import barrier, host_info
 from lass_torch.tasks.audiosep import AudioSepTask
 from lass_torch.train.checkpoint import CheckpointManager, restore_file
 from lass_torch.train.optim import build_optimizer
@@ -100,6 +112,8 @@ class Trainer:
                  log_every: int = LOG_EVERY):
         self.cfg = cfg = load_config(config_yaml)
         self.device = torch.device(device)
+        self.rank, world = host_info()
+        self.main_process = self.rank == 0
         if cfg.model.query_net != "CLAP":
             raise NotImplementedError(cfg.model.query_net)
         self.use_text_ratio = cfg.model.use_text_ratio
@@ -110,8 +124,8 @@ class Trainer:
                 "the CLAP audio tower: pass a query encoder after its "
                 "attach_audio_encoder()")
         (self.checkpoints_dir, self.logs_dir, self.tf_logs_dir,
-         stats_dir) = get_dirs(workspace, filename, config_yaml, 1)
-        create_logging(self.logs_dir)
+         stats_dir) = get_dirs(workspace, filename, config_yaml, world)
+        create_logging(self.logs_dir, main_process=self.main_process)
         logging.info("config: %s", cfg)
         self.log_every = log_every
 
@@ -137,11 +151,13 @@ class Trainer:
                                    max_clip_len=cfg.data.segment_seconds)
         self.datamodule = DataModule(
             dataset, batch_size=cfg.train.batch_size_per_device,
-            num_workers=cfg.train.num_workers, seed=cfg.train.random_seed)
+            num_workers=cfg.train.num_workers, seed=cfg.train.random_seed,
+            process_index=self.rank, process_count=world)
         self.ckpt = CheckpointManager(
             self.checkpoints_dir,
             save_step_frequency=cfg.train.save_step_frequency)
-        self.metrics = MetricsLogger(self.tf_logs_dir)
+        self.metrics = MetricsLogger(self.tf_logs_dir,
+                                     enabled=self.main_process)
         self.statistics = StatisticsContainer(
             os.path.join(stats_dir, "statistics.pkl"))
         if resume_checkpoint_path:
@@ -174,11 +190,14 @@ class Trainer:
                 "condition": condition.clone()}
 
     def fit(self, max_steps: Optional[int] = None,
-            eval_hook: Optional[Callable] = None) -> AudioSepTask:
+            eval_hook: Optional[Callable] = None,
+            step_hook: Optional[Callable[[int], None]] = None
+            ) -> AudioSepTask:
         """Train until ``max_steps`` (or train.early_stop_steps) updates
         have been done in all; returns the task. ``eval_hook(trainer,
         step)`` -> dict of metrics runs every
-        ``train.evaluate_step_frequency`` steps."""
+        ``train.evaluate_step_frequency`` steps (on rank 0);
+        ``step_hook(step)`` after every step (the CLI's profiler)."""
         cfg, timing, pc = self.cfg, self.timing, time.perf_counter
         stop_at = cfg.train.early_stop_steps
         if max_steps is not None:
@@ -216,7 +235,9 @@ class Trainer:
                     self.metrics.log(step, {"train_loss": loss,
                                             "grad_norm": gnorm,
                                             "steps_per_sec": sps})
-                if eval_hook is not None and \
+                if step_hook is not None:
+                    step_hook(step)
+                if eval_hook is not None and self.main_process and \
                         step % cfg.train.evaluate_step_frequency == 0:
                     t0 = pc()
                     eval_metrics = eval_hook(self, step)
@@ -227,7 +248,7 @@ class Trainer:
                     seconds = pc() - t0
                     timing["eval"] += seconds
                     t_last += seconds  # keep the steps/s windows eval-free
-                if self.ckpt.should_save(step):
+                if self.main_process and self.ckpt.should_save(step):
                     t0 = pc()
                     self.ckpt.save_async(step, self.task, self.generator)
                     timing["save_block"] += pc() - t0
@@ -235,6 +256,7 @@ class Trainer:
             loader.close()
             self.ckpt.wait()
             self.metrics.finish()
+        barrier()  # rank 0's last checkpoint is on disk for every rank
         logging.info("fit seconds: %s", {k: round(v, 3)
                                          for k, v in timing.items()})
         return self.task

@@ -1,7 +1,9 @@
 """Logging and metrics (counterpart of lass_tpu/utils/logging.py):
 numbered file logs plus the console, and step metrics to
 ``metrics.jsonl``. (The JAX package also logs to W&B when that package is
-installed; the port writes only local files.)"""
+installed; the port writes only local files.) In a multi-card run only
+rank 0 writes (``main_process``, ``enabled``); the other ranks log
+warnings to the console."""
 from __future__ import annotations
 
 import json
@@ -11,7 +13,11 @@ import time
 from typing import Dict
 
 
-def create_logging(log_dir: str, filemode: str = "w") -> logging.Logger:
+def create_logging(log_dir: str, filemode: str = "w",
+                   main_process: bool = True) -> logging.Logger:
+    if not main_process:
+        logging.basicConfig(level=logging.WARNING, force=True)
+        return logging.getLogger("")
     os.makedirs(log_dir, exist_ok=True)
     i = 0
     while os.path.isfile(os.path.join(log_dir, f"{i:04d}.log")):
@@ -35,18 +41,22 @@ def create_logging(log_dir: str, filemode: str = "w") -> logging.Logger:
 
 
 class MetricsLogger:
-    """Step metrics -> ``<log_dir>/metrics.jsonl``, one JSON object a line."""
+    """Step metrics -> ``<log_dir>/metrics.jsonl``, one JSON object a line
+    (nothing at all when not ``enabled``)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        self._fh = open(self.path, "a")
+        self._fh = open(self.path, "a") if enabled else None
 
     def log(self, step: int, metrics: Dict[str, float]) -> None:
+        if self._fh is None:
+            return
         record = {"step": int(step), "time": time.time(),
                   **{k: float(v) for k, v in metrics.items()}}
         self._fh.write(json.dumps(record) + "\n")
         self._fh.flush()
 
     def finish(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
