@@ -13,8 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the serving forward gives it (B=16 clips of 10 s) and at ragged shapes
    (B3, B4 and B5 also at the edges of their persistent schedules:
    B3_EDGES, B4_EDGES, B5_EDGES), plus gradient cases
-   for the mask kernels; the six-input mask mode (B2, no caller in either
-   package: this phase is its path) at the serving shape; the time-tap
+   for the mask kernels; B1 and its six-input mode (B2, no caller in
+   either package: this phase is its path) at every layout of
+   ``lass_torch.mask_bench.MASK_LAYOUTS`` (the serving and the variants'
+   views, mixtures 1-3 floats off 16 bytes, F of 1, 5, 257 and 512, T = 1,
+   70000 rows) and the real serving views; the time-tap
    conv (B7) at its microbench's shape (16, 1024, 128, 128) and ragged
    ones, activation off and on;
 4. serve: ``load_ss_model`` on a random-weight full-width ResUNet30
@@ -56,7 +59,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-3 dB);
 6. times with CUDA events: the B=16 x 10 s bf16 forward of the default
    configuration, A and B, caption encoding, each kernel against its bound
-   and its plain version at each serving shape, with a context call
+   and its plain version at each serving shape (B1, B2 and B6 by their
+   device time alone, ``lass_torch.mask_bench.device_time``: the
+   profiler's kernel duration, or a CUDA graph of the launches, beside
+   the wrapper's host time per call), with a context call
    beside B3, B4 and B5 that is not the same function (``context_call``:
    cuDNN's bare conv, the sparse route of two B3 launches and the add,
    cuDNN's bare transposed conv), the B7 microbench
@@ -332,11 +338,12 @@ def mag_cos_sin(re, im):
 
 def check_mask_kernel(device, b2=False):
     """Phase 3 for B1 (five inputs) or B2 (``b2``: six, the mixture as
-    mag/cos/sin): kernel vs plain at the serving views, a contiguous
-    4-wide case and a ragged scalar case; a gradient through the
-    autograd.Function. Returns the largest error at the serving shape."""
+    mag/cos/sin): kernel vs plain at the serving views and at every layout
+    of ``MASK_LAYOUTS``; a gradient through the autograd.Function. Returns
+    the largest error at the serving views."""
     import torch
 
+    from lass_torch.mask_bench import MASK_LAYOUTS, layout_inputs
     from lass_torch.ops import masking
 
     name = "B2 mask kernel" if b2 else "mask kernel"
@@ -359,12 +366,13 @@ def check_mask_kernel(device, b2=False):
     if b2:
         serving = (*serving[:3], *mag_cos_sin(*serving[3:]))
     err = compare(serving, f"serving views {tuple(serving[0].shape)}")
+    for k, case in enumerate(MASK_LAYOUTS):
+        args = layout_inputs(case, six=b2, device=device, seed=k)
+        compare(args, f"{case[0]} {case[1]}, row strides "
+                      f"{[a.stride(1) for a in args]}")
+        del args
     gen = torch.Generator(device=device).manual_seed(1)
     n_in = 6 if b2 else 5
-    for shape in [(3, 37, 257), (4, 101, 512)]:
-        args = [torch.randn(*shape, generator=gen, device=device)
-                for _ in range(n_in)]
-        compare(args, f"contiguous {shape}")
     args = [torch.randn(2, 5, 64, generator=gen, device=device,
                         requires_grad=True) for _ in range(n_in)]
     r, i = fn(*args)
@@ -1301,9 +1309,13 @@ def context_call(case):
 def time_fused_kernels(iters=5, reps=10):
     """Phase 6 for the fused kernels: each serving case, kernel and plain
     version in turns (plain, kernel, kernel, plain), and beside B3, B4 and
-    B5 their context call (``context_call``). Returns per-case rows and
-    per-kernel totals per forward (sum over its launches)."""
+    B5 their context call (``context_call``). B6's time is its device
+    time alone (``lass_torch.mask_bench.device_time``; its through-the-
+    wrapper time and host time per call beside it). Returns per-case rows
+    and per-kernel totals per forward (sum over its launches)."""
     import torch
+
+    from lass_torch import mask_bench
 
     rows, totals = [], {}
     for case in fused_cases("cuda"):
@@ -1326,6 +1338,16 @@ def time_fused_kernels(iters=5, reps=10):
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": case["bytes"], "ops": case["ops"],
                "context": context and context[0], "context_ms": context_ms}
+        if case["kernel"] == "apply_head_mask":
+            dev = mask_bench.device_time(lambda: case["fn"](*args),
+                                         mask_bench.B6_KERNEL)
+            row.update(ms=dev["device_ms"], wrapper_ms=row["ms"], **{
+                k: v for k, v in dev.items() if k != "wrapper_ms"})
+            log(f"{row['kernel']} device time alone "
+                f"({'profiler' if dev['profiler_ms'] is not None else 'graph'}"
+                f"): {row['ms'] * 1e3:.1f} us, through the wrapper "
+                f"{row['wrapper_ms'] * 1e3:.1f} us, host "
+                f"{dev['host_us']:.1f} us a call")
         rows.append(row)
         log(f"{row['kernel']} at {row['label']} (x{case['n']} per "
             f"forward): {row['ms'] * 1e3:.1f} us, plain "
@@ -1379,10 +1401,11 @@ def time_captions(enc, n=16, iters=10):
 
 
 def time_mask_kernel(b2=False, iters=10, reps=10, args=None):
-    """B1 (or B2) and its plain version at the serving views (or at
-    ``args``, B1's five inputs), in turns."""
-    import torch
-
+    """B1 (or B2) at the serving views (or at ``args``, B1's five inputs):
+    the kernel's device time alone and the wrapper's host time per call
+    (``lass_torch.mask_bench.device_time``), between two timings of the
+    plain version; the bound and the share."""
+    from lass_torch import mask_bench
     from lass_torch.ops import masking
 
     args = serving_mask_inputs("cuda") if args is None else args
@@ -1392,19 +1415,26 @@ def time_mask_kernel(b2=False, iters=10, reps=10, args=None):
     else:
         fn, plain_fn = masking.apply_complex_mask_ri, masking.mask_math_from_ri
     n, t, f = args[0].shape
-    kernel = lambda: fn(*args)  # noqa: E731
     plain = lambda: plain_fn(*args)  # noqa: E731
-    runs = {"plain": [], "kernel": []}
-    for name, call in (("plain", plain), ("kernel", kernel),
-                       ("kernel", kernel), ("plain", plain)):
-        runs[name].append(cuda_ms(call, iters, reps=reps))
-    elements = n * t * f
-    bytes_ms = 4 * (len(args) + 2) * elements / HBM_BYTES_PER_S * 1e3
-    flops_ms = MASK_FLOPS_PER_ELEMENT * elements / F32_FLOP_PER_S * 1e3
-    return {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+    plain_ms = [cuda_ms(plain, iters, reps=reps)]
+    dev = mask_bench.device_time(lambda: fn(*args), mask_bench.B1_B2_KERNEL)
+    plain_ms.append(cuda_ms(plain, iters, reps=reps))
+    bound = mask_bench.mask_bound(len(args), n * t * f)
+    return {"ms": dev["device_ms"], **dev, "plain_ms": min(plain_ms),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "share": bound["bound_ms"] / dev["device_ms"],
             "shape": [n, t, f]}
+
+
+def mask_time_line(name, m):
+    """One log line of a ``time_mask_kernel`` reading."""
+    return (f"{name} at {m['shape']}: device {m['ms'] * 1e3:.1f} us "
+            f"({'profiler' if m['profiler_ms'] is not None else 'graph'}; "
+            f"graph {m['graph_ms'] * 1e3:.1f} us), through the wrapper "
+            f"{m['wrapper_ms'] * 1e3:.1f} us, host {m['host_us']:.1f} us a "
+            f"call, plain {m['plain_ms'] * 1e3:.1f} us, bound "
+            f"{m['bound_ms'] * 1e3:.1f} us ({m['bound_by']}), "
+            f"{100 * m['share']:.0f}% of the bound")
 
 
 def time_timetap():
@@ -1941,10 +1971,8 @@ def variant_forward(store, encoder):
     b1["max_abs_err"] = err
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(inputs, length), 10)
-    log(f"apply_complex_mask_ri at {b1['shape']} (multistft): "
-        f"{b1['ms'] * 1e3:.1f} us, plain {b1['plain_ms'] * 1e3:.1f} us, "
-        f"bound {b1['bound_ms'] * 1e3:.1f} us ({b1['bound_by']}); eval "
-        f"forward {fwd_ms:.2f} ms median, "
+    log(mask_time_line("apply_complex_mask_ri (multistft)", b1)
+        + f"; eval forward {fwd_ms:.2f} ms median, "
         f"{VARIANT_BATCH / (fwd_ms / 1e3):.1f} clips/s")
     return model, {"b1": b1, "forward_ms": fwd_ms}, counts
 
@@ -3068,10 +3096,7 @@ def main():
     for name, b2 in (("apply_complex_mask_ri", False),
                      ("apply_complex_mask", True)):
         masks[name] = time_mask_kernel(b2)
-        m = masks[name]
-        log(f"{name} at {m['shape']}: {m['ms'] * 1e3:.1f} us, plain "
-            f"{m['plain_ms'] * 1e3:.1f} us, bound {m['bound_ms'] * 1e3:.1f} "
-            f"us ({m['bound_by']})")
+        log(mask_time_line(name, masks[name]))
     rows, totals = time_fused_kernels()
     for name, what in (("fused_act_conv3x3", "config-A forward (8 launches)"),
                        ("fused_residual_conv_block",

@@ -15,14 +15,26 @@
 // (78.3 us) at the data sheet's 3.35 TB/s.
 //
 // What the design does about it: one pass, no intermediate in device
-// memory, and no copies around it. Each input is an (N, T, F) view with
-// its own element strides for n and t and unit stride along F, so the
-// wrapper hands in the channel slices of the UNet output cropped in time
-// and the 513-bin spectrum cropped to 512 bins as they lie. Consecutive
-// threads take consecutive elements of a row, so every load and store is
-// coalesced; where every row stride and base pointer allows, a thread
-// moves a 4-wide vector (16-byte accesses). The outputs are contiguous
-// (N, T, F).
+// memory, no copies around it, and few instructions per byte. Each input
+// is an (N, T, F) view with its own element strides for n and t and unit
+// stride along F, so the wrapper hands in the channel slices of the UNet
+// output cropped in time and the 513-bin spectrum cropped to 512 bins as
+// they lie. A block is (threads per row) x (rows per block); each thread
+// takes kBins = 4 consecutive bins of one row, so a warp reads whole
+// 128-byte lines of each input. A row's (n, t) comes once per thread from
+// a multiply-shift divisor the wrapper computes (no integer division per
+// element). A thread reads its bins of each input as four scalar loads,
+// which a warp coalesces into whole lines at any alignment: the
+// spectrum's rows, 513 (serving) or 257 (variants) floats apart, start at
+// a different alignment on each row. A row whose width is not a multiple
+// of 4 ends in a partial group. The outputs are contiguous (N, T, F) and
+// stored as one 16-byte vector a thread where the group is whole and
+// aligned. Measured against it on the card (python -m
+// lass_torch.mask_bench --variants): 16-byte loads on the rows that are
+// aligned gained nothing (the logits, B2's mag/cos/sin); 8 bins a thread,
+// and the unaligned rows as aligned 16-byte loads funnel-shifted across
+// lanes by the row's misalignment, were slower (the shuffles and selects
+// cost more issue slots than the scalar loads).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lass_torch/ops/_build.py).
@@ -33,6 +45,9 @@
 #include "mask_math.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;  // most threads in a block
+constexpr int kBins = 4;       // consecutive bins a thread takes (4 or 8)
 
 struct View {
   const float* ptr;
@@ -46,104 +61,138 @@ struct MaskArgs {
   View x[6];
   float* out_re;
   float* out_im;
-  int64_t n, t, f;
+  int64_t rows;       // n * t
+  int64_t t;
+  int64_t fast_rows;  // rows below this split with t_mul / t_shift
+  int f;              // bins per row
+  int groups;         // kBins-bin groups per row, ceil(f / kBins)
+  uint32_t t_mul;     // row / t = umulhi(row, t_mul) >> t_shift (t_mul 0:
+  uint32_t t_shift;   // t == 1)
 };
 
-template <int kVec>
-__device__ __forceinline__ void load(const View& v, int64_t n, int64_t t,
-                                     int64_t col, float* dst) {
-  const float* p = v.ptr + n * v.sn + t * v.st + col;
-  if constexpr (kVec == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    dst[0] = q.x;
-    dst[1] = q.y;
-    dst[2] = q.z;
-    dst[3] = q.w;
+// (n, t) of a row: multiply-shift below fast_rows, else 64-bit division
+__device__ __forceinline__ void split_row(const MaskArgs& a, int64_t row,
+                                          int64_t* n, int64_t* t) {
+  if (row < a.fast_rows) {
+    const uint32_t r = static_cast<uint32_t>(row);
+    const uint32_t q = a.t_mul ? __umulhi(r, a.t_mul) >> a.t_shift : r;
+    *n = q;
+    *t = r - q * static_cast<uint32_t>(a.t);
   } else {
-    dst[0] = *p;
+    *n = row / a.t;
+    *t = row - *n * a.t;
   }
 }
 
-template <int kVec, int kInputs>  // kInputs 5: raw re/im; 6: mag/cos/sin
-__global__ void __launch_bounds__(256) apply_complex_mask_kernel(MaskArgs a) {
-  const int64_t per_row = a.f / kVec;
-  const int64_t total = a.n * a.t * per_row;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += step) {
-    const int64_t row = i / per_row;
-    const int64_t col = (i - row * per_row) * kVec;
-    const int64_t n = row / a.t;
-    const int64_t t = row - n * a.t;
-    float v[kInputs][kVec];
+// bins [0, valid) of p, valid <= kBins, as scalar loads at any alignment
+// of the row: the warp's lanes take consecutive groups, so its four loads
+// touch the same 128-byte lines, which L1 keeps between them
+__device__ __forceinline__ void load_bins(const float* p, int valid,
+                                          float* v) {
 #pragma unroll
-    for (int k = 0; k < kInputs; ++k) load<kVec>(a.x[k], n, t, col, v[k]);
-    float r[kVec], m[kVec];
+  for (int j = 0; j < kBins; ++j) v[j] = j < valid ? __ldg(p + j) : 0.0f;
+}
+
+__device__ __forceinline__ void store_bins(float* out, int valid,
+                                           const float* v) {
+  if (valid == kBins && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      if constexpr (kInputs == 5) {
-        lass::mask_one(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j], &r[j],
-                       &m[j]);
-      } else {
-        lass::mask_apply(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j],
-                         v[5][j], &r[j], &m[j]);
-      }
+    for (int j = 0; j < kBins; j += 4) {
+      *reinterpret_cast<float4*>(out + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
     }
-    const int64_t o = row * a.f + col;
-    if constexpr (kVec == 4) {
-      *reinterpret_cast<float4*>(a.out_re + o) =
-          make_float4(r[0], r[1], r[2], r[3]);
-      *reinterpret_cast<float4*>(a.out_im + o) =
-          make_float4(m[0], m[1], m[2], m[3]);
-    } else {
-      a.out_re[o] = r[0];
-      a.out_im[o] = m[0];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBins; ++j) {
+      if (j < valid) out[j] = v[j];
+    }
+  }
+}
+
+// blockDim: x threads along a row (a loop covers wider rows), y rows.
+// Blocks an SM must hold: 4 for B1 (64 registers), its fastest; 3 for B2,
+// whose sixth input runs slower at 64 registers (python -m
+// lass_torch.mask_bench --variants).
+template <int kInputs>  // 5: raw re/im; 6: mag/cos/sin
+__global__ void __launch_bounds__(kThreads, kInputs == 5 ? 4 : 3)
+    apply_complex_mask_kernel(MaskArgs a) {
+  const int64_t row_step = static_cast<int64_t>(gridDim.x) * blockDim.y;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.y +
+                     threadIdx.y;
+       row < a.rows; row += row_step) {
+    int64_t n, t;
+    split_row(a, row, &n, &t);
+    const float* in[kInputs];
+#pragma unroll
+    for (int k = 0; k < kInputs; ++k) {
+      in[k] = a.x[k].ptr + n * a.x[k].sn + t * a.x[k].st;
+    }
+    float* o_re = a.out_re + row * a.f;
+    float* o_im = a.out_im + row * a.f;
+    for (int g = threadIdx.x; g < a.groups; g += blockDim.x) {
+      const int col = g * kBins;
+      const int valid = min(kBins, a.f - col);
+      float v[kInputs][kBins];
+#pragma unroll
+      for (int k = 0; k < kInputs; ++k) load_bins(in[k] + col, valid, v[k]);
+      float r[kBins], m[kBins];
+#pragma unroll
+      for (int j = 0; j < kBins; ++j) {
+        if constexpr (kInputs == 5) {
+          lass::mask_one(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j], &r[j],
+                         &m[j]);
+        } else {
+          lass::mask_apply(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j],
+                           v[5][j], &r[j], &m[j]);
+        }
+      }
+      store_bins(o_re + col, valid, r);
+      store_bins(o_im + col, valid, m);
     }
   }
 }
 
 template <int kInputs>
-int launch(const MaskArgs& a, bool vec4, cudaStream_t s) {
-  const int kThreads = 256;
-  const int64_t items = a.n * a.t * (vec4 ? a.f / 4 : a.f);
-  if (items == 0) return static_cast<int>(cudaSuccess);
-  // grid-stride loop: enough blocks to fill the card, capped so the grid
-  // stays well inside gridDim.x limits for any length
-  const int64_t blocks_needed = (items + kThreads - 1) / kThreads;
-  const int blocks =
-      static_cast<int>(blocks_needed < 132 * 64 ? blocks_needed : 132 * 64);
-  if (vec4) {
-    apply_complex_mask_kernel<4, kInputs><<<blocks, kThreads, 0, s>>>(a);
-  } else {
-    apply_complex_mask_kernel<1, kInputs><<<blocks, kThreads, 0, s>>>(a);
+int launch(const void* const* ptrs, const int64_t* strides, void* out_re,
+           void* out_im, int64_t n, int64_t t, int64_t f, int64_t t_mul,
+           int64_t t_shift, int64_t fast_rows, int64_t block_x,
+           int64_t block_y, int64_t blocks, cudaStream_t s) {
+  if (n * t * f == 0) return static_cast<int>(cudaSuccess);
+  if (block_x < 1 || block_y < 1 || block_x * block_y > kThreads ||
+      blocks < 1 || blocks > INT32_MAX || f > INT32_MAX - kBins) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-MaskArgs make_args(const void* const* ptrs, const int64_t* strides,
-                   int inputs, void* out_re, void* out_im, int64_t n,
-                   int64_t t, int64_t f) {
   MaskArgs a;
   for (int k = 0; k < 6; ++k) {
-    a.x[k] = k < inputs ? View{static_cast<const float*>(ptrs[k]),
-                               strides[2 * k], strides[2 * k + 1]}
-                        : View{nullptr, 0, 0};
+    a.x[k] = k < kInputs ? View{static_cast<const float*>(ptrs[k]),
+                                strides[2 * k], strides[2 * k + 1]}
+                         : View{nullptr, 0, 0};
   }
   a.out_re = static_cast<float*>(out_re);
   a.out_im = static_cast<float*>(out_im);
-  a.n = n;
+  a.rows = n * t;
   a.t = t;
-  a.f = f;
-  return a;
+  a.fast_rows = fast_rows;
+  a.f = static_cast<int>(f);
+  a.groups = static_cast<int>((f + kBins - 1) / kBins);
+  a.t_mul = static_cast<uint32_t>(t_mul);
+  a.t_shift = static_cast<uint32_t>(t_shift);
+  apply_complex_mask_kernel<kInputs>
+      <<<static_cast<unsigned>(blocks),
+         dim3(static_cast<unsigned>(block_x), static_cast<unsigned>(block_y)),
+         0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry points bound with ctypes. Pointers and the stream come as void*,
-// shapes and strides as int64; each input is (pointer, n stride, t stride).
-// vec4 != 0 selects 4-wide accesses; the caller guarantees then that f and
-// every stride are multiples of 4 and every pointer is 16-byte aligned.
-// Each returns cudaGetLastError() after the launch (0 on success).
+// shapes, strides and the launch plan as int64; each input is (pointer, n
+// stride, t stride). The plan (lass_torch/ops/masking.py mask_plan): the
+// multiply-shift divisor of t (t_mul, t_shift) valid for rows below
+// fast_rows, the block's threads along a row (block_x) and rows
+// (block_y), and the number of blocks. Each returns cudaGetLastError()
+// after the launch (0 on success).
 
 // B1: logits and the raw mixture spectrum (re, im)
 extern "C" int lass_apply_complex_mask_ri(
@@ -153,13 +202,15 @@ extern "C" int lass_apply_complex_mask_ri(
     const void* re, int64_t re_sn, int64_t re_st,
     const void* im, int64_t im_sn, int64_t im_st,
     void* out_re, void* out_im, int64_t n, int64_t t, int64_t f,
-    int64_t vec4, void* stream) {
+    int64_t t_mul, int64_t t_shift, int64_t fast_rows, int64_t block_x,
+    int64_t block_y, int64_t blocks, void* stream) {
   const void* ptrs[5] = {l_mag, l_real, l_imag, re, im};
   const int64_t strides[10] = {l_mag_sn,  l_mag_st, l_real_sn, l_real_st,
                                l_imag_sn, l_imag_st, re_sn,    re_st,
                                im_sn,     im_st};
-  return launch<5>(make_args(ptrs, strides, 5, out_re, out_im, n, t, f),
-                   vec4 != 0, static_cast<cudaStream_t>(stream));
+  return launch<5>(ptrs, strides, out_re, out_im, n, t, f, t_mul, t_shift,
+                   fast_rows, block_x, block_y, blocks,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // B2, the six-input mode: logits and the mixture's mag, cos and sin
@@ -172,11 +223,13 @@ extern "C" int lass_apply_complex_mask(
     const void* cos_in, int64_t cos_sn, int64_t cos_st,
     const void* sin_in, int64_t sin_sn, int64_t sin_st,
     void* out_re, void* out_im, int64_t n, int64_t t, int64_t f,
-    int64_t vec4, void* stream) {
+    int64_t t_mul, int64_t t_shift, int64_t fast_rows, int64_t block_x,
+    int64_t block_y, int64_t blocks, void* stream) {
   const void* ptrs[6] = {l_mag, l_real, l_imag, mag, cos_in, sin_in};
   const int64_t strides[12] = {l_mag_sn,  l_mag_st, l_real_sn, l_real_st,
                                l_imag_sn, l_imag_st, mag_sn,   mag_st,
                                cos_sn,    cos_st,   sin_sn,    sin_st};
-  return launch<6>(make_args(ptrs, strides, 6, out_re, out_im, n, t, f),
-                   vec4 != 0, static_cast<cudaStream_t>(stream));
+  return launch<6>(ptrs, strides, out_re, out_im, n, t, f, t_mul, t_shift,
+                   fast_rows, block_x, block_y, blocks,
+                   static_cast<cudaStream_t>(stream));
 }

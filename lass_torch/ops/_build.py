@@ -119,9 +119,9 @@ _I64, _PTR = ctypes.c_int64, ctypes.c_void_p
 # sizes and strides as int64); every one returns a CUDA error code
 ARGTYPES = {
     "lass_apply_complex_mask_ri": [_PTR, _I64, _I64] * 5 + [
-        _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR],
+        _PTR, _PTR] + [_I64] * 9 + [_PTR],
     "lass_apply_complex_mask": [_PTR, _I64, _I64] * 6 + [
-        _PTR, _PTR, _I64, _I64, _I64, _I64, _PTR],
+        _PTR, _PTR] + [_I64] * 9 + [_PTR],
     "lass_act_conv3x3": [_PTR, _I64, _I64, _I64, _I64] * 2 + [
         _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _PTR],

@@ -16,7 +16,8 @@ chain: the port of ``apply_head_mask_folded``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -71,10 +72,42 @@ def _check(args) -> None:
             raise ValueError("mask inputs need unit stride along F")
 
 
-def _vec4_ok(args, f: int) -> bool:
-    return f % 4 == 0 and all(
-        a.data_ptr() % 16 == 0 and a.stride(0) % 4 == 0
-        and a.stride(1) % 4 == 0 for a in args)
+class MaskPlan(NamedTuple):
+    """How ``csrc/masking.cu`` covers an (N, T, F) call: row / T as
+    ``umulhi(row, t_mul) >> t_shift`` for rows below ``fast_rows`` (t_mul
+    0: T == 1), blocks of ``block_x`` threads along a row by ``block_y``
+    rows, each thread taking ``BINS`` consecutive bins, and ``blocks``
+    blocks (a loop in the kernel covers rows past them)."""
+    t_mul: int
+    t_shift: int
+    fast_rows: int
+    block_x: int
+    block_y: int
+    blocks: int
+
+
+THREADS = 256  # most threads in a block (the kernel's kThreads)
+BINS = 4  # consecutive bins a thread takes (the kernel's kBins)
+_FAST_ROWS = 1 << 31  # rows the 32-bit multiply-shift split covers
+_MAX_BLOCKS = (1 << 31) - 1
+
+
+@functools.lru_cache(maxsize=256)
+def mask_plan(n: int, t: int, f: int) -> MaskPlan:
+    """The launch plan of an (n, t, f) call. The divisor: for 2 <= t <
+    2^31, p = 31 + ceil(log2 t) and t_mul = ceil(2^p / t) < 2^32 give
+    floor(r / t) = floor(r * t_mul / 2^p) for every r < 2^31 (the error
+    r * (t_mul * t - 2^p) stays under 2^p); rows past that divide."""
+    t_mul = t_shift = 0  # T == 1: the quotient is the row itself
+    if 1 < t < _FAST_ROWS:
+        p = 31 + (t - 1).bit_length()
+        t_mul, t_shift = -(-(1 << p) // t), p - 32
+    groups = -(-f // BINS)
+    block_x = max(1, min(groups, THREADS))
+    block_y = THREADS // block_x
+    blocks = max(1, min(-(-n * t // block_y), _MAX_BLOCKS))
+    return MaskPlan(t_mul, t_shift, _FAST_ROWS if 0 < t < _FAST_ROWS else 0,
+                    block_x, block_y, blocks)
 
 
 def _launch(args) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,18 +115,20 @@ def _launch(args) -> Tuple[torch.Tensor, torch.Tensor]:
     from lass_torch.ops._build import load_library
 
     global LAUNCHES, B2_LAUNCHES
-    lib = load_library()
-    fn = (lib.lass_apply_complex_mask_ri if len(args) == 5
-          else lib.lass_apply_complex_mask)
     n, t, f = args[0].shape
     out_re = torch.empty((n, t, f), dtype=torch.float32,
                          device=args[0].device)
     out_im = torch.empty_like(out_re)
+    if out_re.numel() == 0:
+        return out_re, out_im
+    lib = load_library()
+    fn = (lib.lass_apply_complex_mask_ri if len(args) == 5
+          else lib.lass_apply_complex_mask)
     flat = []
     for a in args:
         flat += [a.data_ptr(), a.stride(0), a.stride(1)]
     _common.launch(fn, args[0].device, "masking", *flat, out_re.data_ptr(),
-                   out_im.data_ptr(), n, t, f, int(_vec4_ok(args, f)))
+                   out_im.data_ptr(), n, t, f, *mask_plan(n, t, f))
     if len(args) == 5:
         LAUNCHES += 1
     else:
@@ -126,7 +161,9 @@ def _apply(args, plain) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(args)
     if _common.device_kind(args[0], "masking") == "cpu":
         return plain(*args)
-    return _Mask.apply(*args)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _Mask.apply(*args)
+    return _launch(args)  # no autograd node where no gradient is asked
 
 
 def apply_complex_mask_ri(l_mag: torch.Tensor, l_real: torch.Tensor,

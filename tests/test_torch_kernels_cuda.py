@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from lass_torch.mask_bench import MASK_LAYOUTS, layout_inputs
 from lass_torch.ops import masking
 
 
@@ -384,3 +385,36 @@ def test_istft_of_masked_spectra_is_batch_independent_on_card(rng):
     cpu = istft(re, im, length, cfg, truncated_nyquist=True)
     for got, ref in ((four[:2].cpu(), two.cpu()), (four.cpu(), cpu)):
         assert (got - ref).norm() <= 1e-5 * ref.norm()
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2 at every layout the kernel has to take (lass_torch.mask_bench
+# MASK_LAYOUTS): the serving views (513-float spectrum rows, channel slices
+# of padded logits), the variants' views (257-float rows cropped to 256),
+# mixtures whose storage starts 1, 2 and 3 floats off 16 bytes, F in
+# {1, 5, 257, 512}, T = 1 and 70000 rows at F = 4. Float32: 1e-5 of
+# max(1, max |plain|), as above.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("six", [False, True], ids=["B1", "B2"])
+@pytest.mark.parametrize("case", MASK_LAYOUTS, ids=[c[0] for c in
+                                                    MASK_LAYOUTS])
+def test_mask_layouts_match_plain_on_card(case, six):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = layout_inputs(case, six=six, seed=3)
+    fn = masking.apply_complex_mask if six else masking.apply_complex_mask_ri
+    plain = masking.mask_math if six else masking.mask_math_from_ri
+    counter = "B2_LAUNCHES" if six else "LAUNCHES"
+    before = getattr(masking, counter)
+    with torch.inference_mode():
+        got = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+    assert getattr(masking, counter) == before + 1
+    for g, r in zip(got, ref):
+        assert g.is_contiguous() and g.shape == args[0].shape
+        assert (g - r).abs().max().item() <= 1e-5 * max(
+            1.0, r.abs().max().item())
