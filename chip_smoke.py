@@ -52,6 +52,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal to its pure branch; CUDA-event times of the B=16 embed in parts
    (resample, log-mel, HTSAT + projection) and of one 10 s audio-queried
    request;
+4d. caption branches: for each of BERT (bert-base) and BART (the
+   bart-base encoder), a full-width random text encoder (seeded) saved as
+   a reference CLAP checkpoint (``module.text_branch.*``,
+   ``module.text_projection.*``, BART's ``shared.weight`` and a decoder
+   key, a logit scale), read with ``load_torch_ckpt``, converted by
+   ``convert_clap_text_encoder(model_type=...)`` into an npz pack and
+   built by ``CLAPQueryEncoder.from_npz(tmodel=...)`` on the card with the
+   fallback tokenizer: 16 distinct captions give (16, 512) unit rows, the
+   pack's embedding equals the source module's within CAPTION_PACK_ABS,
+   card against CPU within CAPTION_CPU_REL (float32); their conditions
+   separate 16 mixtures of 10 s in bf16 (default configuration), each
+   forward launching B1 once and nothing else; caption encode ms beside
+   RoBERTa's. Then ``python -m lass_torch.convert_checkpoint --kind clap``
+   on a reference RoBERTa-base + HTSAT-base checkpoint, whose pack
+   (``from_npz``) reproduces both source towers' embeddings; then the
+   CLIP-style text transformer (512 wide, 12 layers, 8 heads, CLIP_BATCH x
+   77 tokens), card against CPU, and its ms;
 5. the default weights in float32, B=2 x 1 s, on the card and on the CPU;
    configuration A in bf16, B=1 x 1 s, on the card and on the CPU (the
    kernels' plain versions there); the audio tower in float32, B=2 x 10 s,
@@ -255,7 +272,7 @@ CLAP_FLAC_DISTINCT = 2
 CLAP_VAL_CLIPS = 16
 CLAP_CPU_BATCH = 2
 PROBE_CLASSES = 527
-DEVICE = "cuda"  # phase 10's device
+DEVICE = "cuda"  # phases 4d and 10's device
 # phase 11: data parallelism. (a) the parity checks' global batches: the
 # full-width ResUNet30 premixed train step and the mix, the CLAP step, the
 # evaluator's clips and batch (float32, TF32 off); (b) the training CLI
@@ -271,6 +288,13 @@ PARALLEL_LOSS_REL = 1e-5
 PARALLEL_MIX_ABS = 1e-6
 PARALLEL_EVAL_DB = 1e-6
 CODEC_SECONDS = 10.0
+# phase 4d: the caption branches. Each BERT / BART embedding built from its
+# pack against its source module on the card (float32, TF32 off), and the
+# card against the CPU; the CLIP-style transformer at open_clip's width
+# (B=16 x 77 tokens), card against CPU
+CAPTION_PACK_ABS = 1e-6
+CAPTION_CPU_REL = 1e-4
+CLIP_BATCH = 16
 RESULTS = {}
 
 
@@ -305,6 +329,11 @@ def cuda_ms(fn, iters, warmup=3, reps=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def rel_err(got, ref):
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return ((got - ref).norm() / ref.norm()).item()
 
 
 def max_err(got, ref):
@@ -1099,16 +1128,10 @@ def audio_serving(sep):
     torch.cuda.reset_peak_memory_stats()
     conds = enc.get_query_embed("audio", audio=clips)
     peak = torch.cuda.max_memory_allocated()
-    norms = torch.linalg.vector_norm(conds, dim=-1)
-    gaps = (conds[:, None] - conds[None]).abs().amax(-1)
-    gaps += torch.eye(16, device=gaps.device)
+    norm_dev, gap = check_embedding(conds, 16, "audio")
     log(f"audio conditions: {tuple(conds.shape)}, norms within "
-        f"{(norms - 1).abs().max().item():.2e} of 1, closest two rows "
-        f"{gaps.min().item():.3e} apart (max abs); peak memory "
-        f"{peak / 2 ** 30:.2f} GiB")
-    if conds.shape != (16, 512) or not torch.isfinite(conds).all() or \
-            (norms - 1).abs().max() > 1e-5 or gaps.min() <= 1e-6:
-        raise AssertionError("bad audio conditions")
+        f"{norm_dev:.2e} of 1, closest two rows {gap:.3e} apart (max abs); "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
 
     rng = np.random.RandomState(13)
     mixtures = (0.1 * rng.randn(16, 1, 160000)).astype(np.float32)
@@ -1188,7 +1211,7 @@ def audio_serving(sep):
     out = {"parts": parts, "request_ms": request_ms, "embed_peak_gib":
            peak / 2 ** 30, "hybrid_max_abs_err": hybrid,
            "configA_vs_default_rel_err": fused_err,
-           "closest_rows_max_abs": gaps.min().item(),
+           "closest_rows_max_abs": gap,
            "phase_s": time.perf_counter() - phase_start}
     log(f"phase 4c: {out['phase_s']:.1f} s")
     return out, launches
@@ -1220,8 +1243,8 @@ def audio_card_vs_cpu(enc, seed=14, limit=1e-4):
         model.to(dev).eval()
         with torch.inference_mode():
             mels.append(log_mel_spectrogram(x.to(dev), cfg.mel).cpu())
-            embeds.append(model(x.to(dev)).cpu().double())
-    err = ((embeds[0] - embeds[1]).norm() / embeds[1].norm()).item()
+            embeds.append(model(x.to(dev)))
+    err = rel_err(*embeds)
     mel_db = (mels[0] - mels[1]).abs().max().item()
     log(f"CLAP audio tower (HTSAT-base) float32 card vs CPU, B=2 x 10 s: "
         f"rel err {err:.3e} (limit {limit}); log-mel max abs "
@@ -1229,6 +1252,222 @@ def audio_card_vs_cpu(enc, seed=14, limit=1e-4):
     if not (err <= limit and mel_db <= 1e-3):
         raise AssertionError("the audio tower disagrees between card and CPU")
     return {"rel_err": err, "log_mel_max_abs_db": mel_db}
+
+
+def check_embedding(emb, n, what):
+    """(n, 512) finite unit rows, no two alike; returns how far the norms
+    are from 1 and the gap between the closest two rows (max abs)."""
+    import torch
+
+    norm_dev = (torch.linalg.vector_norm(emb, dim=-1) - 1).abs().max()
+    gaps = (emb[:, None] - emb[None]).abs().amax(-1)
+    gaps += torch.eye(n, device=gaps.device)
+    if emb.shape != (n, 512) or not torch.isfinite(emb).all() or \
+            norm_dev > 1e-5 or gaps.min() <= 1e-6:
+        raise AssertionError(f"bad {what} embeddings: {tuple(emb.shape)}")
+    return norm_dev.item(), gaps.min().item()
+
+
+def reference_text_checkpoint(source, path, branch):
+    """Save a text encoder's weights as a reference CLAP checkpoint does:
+    ``module.`` keys, a logit scale the converters skip, and for BART the
+    whole BartModel's ``shared.weight`` and a decoder key."""
+    import torch
+
+    sd = {f"module.{k}": v for k, v in source.state_dict().items()}
+    if branch == "bart":
+        sd["module.text_branch.shared.weight"] = \
+            sd["module.text_branch.encoder.embed_tokens.weight"]
+        sd["module.text_branch.decoder.layers.0.fc1.weight"] = torch.randn(
+            3072, 768)
+    sd["module.logit_scale_t"] = torch.tensor(math.log(1 / 0.07))
+    torch.save({"epoch": 15, "state_dict": sd}, path)
+
+
+def caption_branch(sep, branch, tmp, captions, mixtures, seed):
+    """Phase 4d for one branch (see the module docstring). Returns its
+    results and its launch counts."""
+    import numpy as np
+    import torch
+
+    from lass_torch.convert.checkpoint_io import load_torch_ckpt
+    from lass_torch.convert.torch_to_pack import convert_clap_text_encoder
+    from lass_torch.convert_checkpoint import flatten
+    from lass_torch.models.clap.model import (
+        CLAPBartTextEncoder, CLAPBertTextEncoder)
+    from lass_torch.models.query_encoder import CLAPQueryEncoder
+
+    torch.manual_seed(seed)
+    source = (CLAPBertTextEncoder() if branch == "bert"
+              else CLAPBartTextEncoder()).eval()
+    layers = source.text_branch.cfg.num_hidden_layers
+    ckpt = os.path.join(tmp, f"clap_{branch}.pt")
+    pack = os.path.join(tmp, f"clap_{branch}.npz")
+    start = time.perf_counter()
+    reference_text_checkpoint(source, ckpt, branch)
+    params = convert_clap_text_encoder(load_torch_ckpt(ckpt), layers,
+                                       model_type=branch)
+    np.savez(pack, **{f"text/params/{k}": v
+                      for k, v in flatten(params).items()})
+    enc = CLAPQueryEncoder.from_npz(pack, tmodel=branch, device=DEVICE)
+    convert_s = time.perf_counter() - start
+    os.remove(ckpt)
+    os.remove(pack)
+
+    emb = enc.get_query_embed("text", text=captions)
+    _, gap = check_embedding(emb, len(captions), branch)
+    tok = enc.tokenizer(captions, max_length=enc.max_length,
+                        pad_to=enc.pad_to)
+    ids = torch.from_numpy(tok["input_ids"]).long()
+    mask = torch.from_numpy(tok["attention_mask"]).long()
+    with torch.inference_mode():
+        want = source.to(DEVICE)(ids.to(DEVICE), mask.to(DEVICE))
+        pack_err = (emb - want).abs().max().item()
+        cpu_err = rel_err(emb, source.cpu()(ids, mask))
+    log(f"caption branch {branch}: checkpoint -> pack -> from_npz "
+        f"{convert_s:.1f} s; {tuple(emb.shape)}, closest rows {gap:.3e} "
+        f"apart; pack vs source max abs {pack_err:.3e} (limit "
+        f"{CAPTION_PACK_ABS}), card vs CPU rel err {cpu_err:.3e} (limit "
+        f"{CAPTION_CPU_REL}); "
+        f"{'fallback' if enc.using_fallback_tokenizer else 'vocab'} "
+        f"tokenizer, {ids.shape[1]} tokens")
+    if not (pack_err <= CAPTION_PACK_ABS and cpu_err <= CAPTION_CPU_REL):
+        raise AssertionError(f"caption branch {branch} disagrees")
+
+    reset_kernel_counts()
+    waves = sep.separate(mixtures, emb)
+    counts = kernel_counts()
+    expect = {name: PER_FORWARD["default"].get(name, 0)
+              for name, *_ in KERNELS}
+    if counts != expect:
+        raise AssertionError(f"{branch}-conditioned forward launched "
+                             f"{counts}, expected {expect}")
+    if waves.shape != mixtures.shape or not np.isfinite(waves).all():
+        raise AssertionError(f"bad {branch}-conditioned output")
+    caption_ms = time_captions(enc)
+    log(f"caption branch {branch}: 16 x 10 s bf16 default forward launched "
+        f"{counts['apply_complex_mask_ri']} B1 and nothing else; caption "
+        f"encode, 16 captions: {caption_ms:.2f} ms median")
+    del enc, source
+    torch.cuda.empty_cache()
+    return {"caption_ms": caption_ms, "pack_vs_source_max_abs": pack_err,
+            "card_vs_cpu_rel_err": cpu_err, "closest_rows_max_abs": gap,
+            "tokens": ids.shape[1], "convert_s": convert_s}, counts
+
+
+def clap_cli_pack(tmp, seed=18):
+    """``python -m lass_torch.convert_checkpoint --kind clap`` on a
+    reference RoBERTa-base + HTSAT-base checkpoint (random, seeded); the
+    pack's encoder (``from_npz``) against both source towers on the card."""
+    import numpy as np
+    import torch
+
+    from lass_torch.models.clap.model import (
+        CLAPAudioEncoder, CLAPTextEncoder)
+    from lass_torch.models.query_encoder import CLAPQueryEncoder
+
+    torch.manual_seed(seed)
+    text, audio = CLAPTextEncoder().eval(), CLAPAudioEncoder().eval()
+    sd = {f"module.{k}": v for k, v in {**text.state_dict(),
+                                         **audio.state_dict()}.items()}
+    sd.update({"module.logit_scale_a": torch.tensor(math.log(1 / 0.07)),
+               "module.logit_scale_t": torch.tensor(math.log(1 / 0.07))})
+    ckpt = os.path.join(tmp, "clap_roberta_htsat.pt")
+    pack = os.path.join(tmp, "clap_roberta_htsat.npz")
+    torch.save({"epoch": 15, "state_dict": sd}, ckpt)
+    start = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "lass_torch.convert_checkpoint", "--kind",
+         "clap", "--input", ckpt, "--output", pack], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - start
+    if done.returncode != 0:
+        raise RuntimeError(
+            f"convert_checkpoint failed:\n{done.stderr[-3000:]}")
+    enc = CLAPQueryEncoder.from_npz(pack, device=DEVICE)
+    os.remove(ckpt)
+    os.remove(pack)
+    tok = enc.tokenizer([f"a recorded sound {i}" for i in range(4)],
+                        max_length=enc.max_length, pad_to=enc.pad_to)
+    ids = torch.from_numpy(tok["input_ids"]).long().to(DEVICE)
+    mask = torch.from_numpy(tok["attention_mask"]).long().to(DEVICE)
+    wave = torch.from_numpy((0.1 * np.random.RandomState(seed).randn(
+        2, 480000)).astype(np.float32)).to(DEVICE)
+    with torch.inference_mode():
+        errs = {"text": (enc.text_model(ids, mask)
+                         - text.to(DEVICE)(ids, mask)).abs().max().item(),
+                "audio": (enc.audio_model(wave)
+                          - audio.to(DEVICE)(wave)).abs().max().item()}
+    log(f"convert_checkpoint --kind clap (RoBERTa-base + HTSAT-base, "
+        f"{done.stdout.strip()}): {cli_s:.1f} s; from_npz vs the source "
+        f"towers, float32 on the card: max abs {errs} (limit "
+        f"{CAPTION_PACK_ABS})")
+    if max(errs.values()) > CAPTION_PACK_ABS:
+        raise AssertionError("the CLI's clap pack does not reproduce its "
+                             "source")
+    del enc, text, audio
+    torch.cuda.empty_cache()
+    return {"cli_s": cli_s, "pack_vs_source_max_abs": errs}
+
+
+def clip_card_vs_cpu(seed=19, iters=10):
+    """The CLIP-style text transformer at open_clip's width, CLIP_BATCH x 77
+    tokens, float32: card against CPU, and its ms on the card."""
+    import torch
+
+    from lass_torch.models.clap.clip_text import CLIPTextTransformer
+
+    torch.manual_seed(seed)
+    model = CLIPTextTransformer().eval()
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(1, 49406, (CLIP_BATCH, 77), generator=gen)
+    for row in range(CLIP_BATCH):  # end-of-text at 4 + 4 row, zeros after
+        eot = 4 + 4 * row
+        ids[row, eot], ids[row, eot + 1:] = 49407, 0
+    with torch.inference_mode():
+        cpu = model(ids)
+        model.to(DEVICE)
+        card = model(ids.to(DEVICE))
+        ms = cuda_ms(lambda: model(ids.to(DEVICE)), iters)
+    err = rel_err(card, cpu)
+    log(f"CLIP-style text transformer (512 wide, 12 layers, 8 heads), "
+        f"{CLIP_BATCH} x 77 tokens, float32: card vs CPU rel err {err:.3e} "
+        f"(limit {CAPTION_CPU_REL}); {ms:.3f} ms median on the card")
+    if card.shape != (CLIP_BATCH, 512) or not err <= CAPTION_CPU_REL:
+        raise AssertionError("the CLIP-style transformer disagrees")
+    del model
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu_rel_err": err, "ms": ms}
+
+
+def caption_branches(sep, build_dir):
+    """Phase 4d: the BERT and BART caption branches from reference
+    checkpoints, the clap CLI's pack, the CLIP-style transformer. Returns
+    (results, launches)."""
+    import numpy as np
+
+    start = time.perf_counter()
+    launches = {name: 0 for name, *_ in KERNELS}
+    captions = [f"caption {i}: {w} in a {p}" for i, (w, p) in enumerate(
+        (w, p) for w in ("a dog barking", "rain falling", "a car horn",
+                         "birds singing") for p in ("park", "street",
+                                                    "kitchen", "hall"))]
+    mixtures = (0.1 * np.random.RandomState(15).randn(16, 1, 160000)
+                ).astype(np.float32)
+    results = {"roberta": {"caption_ms": time_captions(sep.query_encoder)}}
+    log(f"caption branch roberta: caption encode, 16 captions: "
+        f"{results['roberta']['caption_ms']:.2f} ms median")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        for branch, seed in (("bert", 16), ("bart", 17)):
+            results[branch], counts = caption_branch(
+                sep, branch, tmp, captions, mixtures, seed)
+            for name, n in counts.items():
+                launches[name] += n
+        results["clap_cli"] = clap_cli_pack(tmp)
+    results["clip"] = clip_card_vs_cpu()
+    results["phase_s"] = time.perf_counter() - start
+    log(f"phase 4d: {results['phase_s']:.1f} s")
+    return results, launches
 
 
 def card_vs_cpu(sep, config="default", dtype="float32", batch=2, seed=5,
@@ -1254,9 +1493,8 @@ def card_vs_cpu(sep, config="default", dtype="float32", batch=2, seed=5,
         model.to(dev).eval()
         with torch.inference_mode():
             outs.append(model({"mixture": mixture.to(dev),
-                               "condition": cond.to(dev)}
-                              )["waveform"].cpu().double())
-    err = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+                               "condition": cond.to(dev)})["waveform"])
+    err = rel_err(*outs)
     log(f"config {config} {dtype} card vs CPU, B={batch} x 1 s: rel err "
         f"{err:.3e} (limit {limit})")
     if not err <= limit:
@@ -3070,6 +3308,13 @@ def main():
         launches[name] += n
     RESULTS.update(audio=audio, launches_phase4c=audio_launches)
     torch.cuda.empty_cache()
+
+    # 4d. caption branches (BERT, BART, the clap CLI's pack, CLIP-style)
+    captions, caption_launches = caption_branches(sep, build_dir)
+    for name, n in caption_launches.items():
+        launches[name] += n
+    RESULTS.update(caption_branches=captions,
+                   launches_phase4d=caption_launches)
 
     # 5. card vs CPU
     RESULTS["f32_card_vs_cpu_rel_err"] = card_vs_cpu(sep)

@@ -5,8 +5,12 @@
 - a reference PyTorch Lightning ``.ckpt`` / ``.pt`` (keys under
   ``ss_model.``, one FiLM Linear per conditioned path), or a checkpoint the
   port wrote with ``save_ss_checkpoint`` (the same layout);
-- an npz pack from ``scripts/convert_checkpoint.py --kind audiosep`` (the
-  JAX package's parameter tree, '/'-joined keys).
+- an npz pack from ``python -m lass_torch.convert_checkpoint --kind
+  audiosep`` or ``scripts/convert_checkpoint.py --kind audiosep`` (the JAX
+  package's parameter tree, '/'-joined keys).
+
+``load_torch_ckpt`` reads any reference checkpoint as numpy arrays, for
+the converters of ``lass_torch.convert.torch_to_pack``.
 
 An orbax directory written by the JAX trainer needs orbax and JAX to read;
 convert it to an npz pack first.
@@ -25,6 +29,18 @@ from lass_torch.models.film import FilmEntry, resunet30_film_spec
 # frozen DFT conv weights of the reference's STFT/ISTFT front and back end;
 # the port computes the transforms itself
 _IGNORED_PREFIXES = ("base.stft.", "base.istft.")
+
+
+def load_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
+    """A torch ``.ckpt`` / ``.pt`` (a Lightning checkpoint's
+    ``state_dict``, or a bare state dict) as numpy arrays on the host.
+    Unpickles in full (``weights_only=False``), as Lightning and CLAP
+    checkpoints need: load only checkpoints you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach")
+            else np.asarray(v) for k, v in blob.items()}
 
 
 def load_npz_variables(path: str) -> Dict[str, Any]:

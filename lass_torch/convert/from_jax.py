@@ -11,7 +11,13 @@ The inverse of the JAX package's torch -> JAX converters
 - FiLM:          the fused kernel (cond, sum C_i), columns in spec order
                  -> the port's fused ``film.weight`` (sum C_i, cond), rows
                  in the same order
-- RoBERTa:       fused QKV -> HF query/key/value
+- RoBERTa, BERT: fused QKV -> HF query/key/value (the same names)
+- BART encoder:  fused QKV -> HF self_attn.{q,k,v}_proj; ``layer_{i}``
+                 -> ``encoder.layers.{i}`` with HF BART's names
+- CLIP-style text transformer: flax ``SelfAttention`` query/key/value
+                 kernels (width, heads, head_dim) -> the rows of
+                 open_clip's ``in_proj_weight`` (3 width, width); the out
+                 kernel (heads, head_dim, width) -> ``out_proj.weight``
 - LayerNorm:     scale/bias -> weight/bias
 - HTSAT:         ``layers_{i}_blocks_{j}`` -> ``layers.{i}.blocks.{j}``,
                  ``mel_conv1d`` kernel (k, I, O) -> Conv1d (O, I, k), the
@@ -91,6 +97,22 @@ def _conv_block(out: StateDict, prefix: str, p: Dict, s: Dict) -> None:
         _conv(out, f"{prefix}.shortcut", p["shortcut"])
 
 
+def _ln(out: StateDict, prefix: str, p: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _split_qkv(out: StateDict, prefix: str, names, p: Dict[str, Any]
+               ) -> None:
+    """A fused QKV Dense -> three Linears ``{prefix}.{name}``."""
+    qkv_w = np.asarray(p["kernel"]).T  # (3h, h)
+    qkv_b = np.asarray(p["bias"])
+    h = qkv_w.shape[1]
+    for j, name in enumerate(names):
+        out[f"{prefix}.{name}.weight"] = _t(qkv_w[j * h:(j + 1) * h])
+        out[f"{prefix}.{name}.bias"] = _t(qkv_b[j * h:(j + 1) * h])
+
+
 def resunet30_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
     """``{'params', 'batch_stats'}`` of lass_tpu ResUNet30 -> the port's
     ResUNet30 state dict."""
@@ -160,47 +182,98 @@ def roberta_state_dict_from_jax(params: Dict[str, Any], num_layers: int,
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
         out[f"{emb}.{name}.weight"] = _t(params[name]["embedding"])
-    out[f"{emb}.LayerNorm.weight"] = _t(params["embeddings_ln"]["scale"])
-    out[f"{emb}.LayerNorm.bias"] = _t(params["embeddings_ln"]["bias"])
+    _ln(out, f"{emb}.LayerNorm", params["embeddings_ln"])
     for i in range(num_layers):
         p = params[f"layer_{i}"]
         e = f"{prefix}encoder.layer.{i}"
-        qkv_w = np.asarray(p["attention"]["qkv"]["kernel"]).T  # (3h, h)
-        qkv_b = np.asarray(p["attention"]["qkv"]["bias"])
-        h = qkv_w.shape[1]
-        for j, name in enumerate(("query", "key", "value")):
-            out[f"{e}.attention.self.{name}.weight"] = _t(
-                qkv_w[j * h:(j + 1) * h])
-            out[f"{e}.attention.self.{name}.bias"] = _t(
-                qkv_b[j * h:(j + 1) * h])
+        _split_qkv(out, f"{e}.attention.self", ("query", "key", "value"),
+                   p["attention"]["qkv"])
         _linear(out, f"{e}.attention.output.dense", p["attention"]["out"])
-        out[f"{e}.attention.output.LayerNorm.weight"] = _t(
-            p["attention_ln"]["scale"])
-        out[f"{e}.attention.output.LayerNorm.bias"] = _t(
-            p["attention_ln"]["bias"])
+        _ln(out, f"{e}.attention.output.LayerNorm", p["attention_ln"])
         _linear(out, f"{e}.intermediate.dense", p["intermediate"])
         _linear(out, f"{e}.output.dense", p["output"])
-        out[f"{e}.output.LayerNorm.weight"] = _t(p["output_ln"]["scale"])
-        out[f"{e}.output.LayerNorm.bias"] = _t(p["output_ln"]["bias"])
+        _ln(out, f"{e}.output.LayerNorm", p["output_ln"])
     _linear(out, f"{prefix}pooler.dense", params["pooler"])
     return out
 
 
-def clap_text_state_dict_from_jax(params: Dict[str, Any], num_layers: int
-                                  ) -> StateDict:
-    """lass_tpu CLAPTextEncoder params -> the port's CLAPTextEncoder state
-    dict, whose keys are a CLAP checkpoint's (``text_branch.*`` HF RoBERTa
-    names, ``text_projection.{0,2}``)."""
-    out = roberta_state_dict_from_jax(params["roberta"], num_layers,
-                                      prefix="text_branch.")
+def bart_encoder_state_dict_from_jax(params: Dict[str, Any],
+                                     num_layers: int, prefix: str = ""
+                                     ) -> StateDict:
+    """lass_tpu BartEncoderModel params -> HF ``BartModel`` encoder names
+    (``encoder.*``), the port's BartEncoderModel's."""
+    out: StateDict = {}
+    enc = f"{prefix}encoder"
+    out[f"{enc}.embed_tokens.weight"] = _t(params["embed_tokens"]["embedding"])
+    out[f"{enc}.embed_positions.weight"] = _t(
+        params["embed_positions"]["embedding"])
+    _ln(out, f"{enc}.layernorm_embedding", params["layernorm_embedding"])
+    for i in range(num_layers):
+        p = params[f"layer_{i}"]
+        e = f"{enc}.layers.{i}"
+        _split_qkv(out, f"{e}.self_attn", ("q_proj", "k_proj", "v_proj"),
+                   p["attention"]["qkv"])
+        _linear(out, f"{e}.self_attn.out_proj", p["attention"]["out"])
+        _ln(out, f"{e}.self_attn_layer_norm", p["attention_ln"])
+        _linear(out, f"{e}.fc1", p["intermediate"])
+        _linear(out, f"{e}.fc2", p["output"])
+        _ln(out, f"{e}.final_layer_norm", p["output_ln"])
+    return out
+
+
+TEXT_BRANCHES = ("roberta", "bert", "bart")
+
+
+def clap_text_state_dict_from_jax(params: Dict[str, Any], num_layers: int,
+                                  branch: str = "roberta") -> StateDict:
+    """lass_tpu CLAPTextEncoder / CLAPBertTextEncoder / CLAPBartTextEncoder
+    params (``branch``: roberta, bert or bart; the params' key of the
+    branch) -> the port's encoder's state dict, whose keys are a CLAP
+    checkpoint's (``text_branch.*`` with HF names,
+    ``text_projection.{0,2}``)."""
+    if branch not in TEXT_BRANCHES:
+        raise ValueError(f"branch must be one of {TEXT_BRANCHES}, got "
+                         f"{branch!r}")
+    if branch == "bart":
+        out = bart_encoder_state_dict_from_jax(params["bart"], num_layers,
+                                               prefix="text_branch.")
+    else:  # HF's BertModel and RobertaModel share their names
+        out = roberta_state_dict_from_jax(params[branch], num_layers,
+                                          prefix="text_branch.")
     _linear(out, "text_projection.0", params["text_projection"]["fc1"])
     _linear(out, "text_projection.2", params["text_projection"]["fc2"])
     return out
 
 
-def _ln(out: StateDict, prefix: str, p: Dict[str, Any]) -> None:
-    out[f"{prefix}.weight"] = _t(p["scale"])
-    out[f"{prefix}.bias"] = _t(p["bias"])
+def clip_text_state_dict_from_jax(params: Dict[str, Any], layers: int
+                                  ) -> StateDict:
+    """lass_tpu CLIPTextTransformer params -> the port's
+    CLIPTextTransformer state dict (open_clip's names)."""
+    out: StateDict = {
+        "token_embedding.weight": _t(params["token_embedding"]["embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+    }
+    for i in range(layers):
+        attn = params[f"attn_{i}"]
+        b = f"transformer.resblocks.{i}"
+        _ln(out, f"{b}.ln_1", params[f"ln_1_{i}"])
+        rows = []
+        for name in ("query", "key", "value"):
+            kernel = np.asarray(attn[name]["kernel"])  # (width, heads, hd)
+            rows.append(kernel.reshape(kernel.shape[0], -1).T)
+        out[f"{b}.attn.in_proj_weight"] = _t(np.concatenate(rows, 0))
+        out[f"{b}.attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(attn[n]["bias"]).reshape(-1)
+             for n in ("query", "key", "value")]))
+        kernel = np.asarray(attn["out"]["kernel"])  # (heads, hd, width)
+        out[f"{b}.attn.out_proj.weight"] = _t(
+            kernel.reshape(-1, kernel.shape[-1]).T)
+        out[f"{b}.attn.out_proj.bias"] = _t(attn["out"]["bias"])
+        _ln(out, f"{b}.ln_2", params[f"ln_2_{i}"])
+        _linear(out, f"{b}.mlp.c_fc", params[f"mlp_fc_{i}"])
+        _linear(out, f"{b}.mlp.c_proj", params[f"mlp_proj_{i}"])
+    _ln(out, "ln_final", params["ln_final"])
+    return out
 
 
 def _fusion_model(out: StateDict, prefix: str, p: Dict, s: Dict,

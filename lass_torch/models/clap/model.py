@@ -1,6 +1,17 @@
 """CLAP towers for LASS (counterpart of lass_tpu/models/clap/model.py):
 
-- text: RoBERTa pooler output -> 2-layer MLP projection -> L2 normalise;
+- text, three branches (the reference's encode_text,
+  open_clip/model.py:644-676), each -> 2-layer MLP projection -> L2
+  normalise:
+  - ``CLAPTextEncoder``: RoBERTa's pooler output; ``text_branch.*`` is
+    an HF ``RobertaModel``'s state dict;
+  - ``CLAPBertTextEncoder``: BERT's pooler output; ``text_branch.*`` is
+    an HF ``BertModel``'s;
+  - ``CLAPBartTextEncoder``: the mean of the BART encoder's last hidden
+    state over every position, padding included (as the reference);
+    ``text_branch.*`` is the encoder side of an HF ``BartModel``'s
+    (``text_branch.encoder.*``; its ``shared.*`` and ``decoder.*`` keys
+    are not read);
 - audio: HTSAT's or a PANN's ``embedding`` -> 2-layer MLP projection ->
   L2 normalise (the reference's get_audio_embedding,
   open_clip/model.py:754-781; PANN model configs, :463-464).
@@ -8,8 +19,7 @@
 State-dict names are a CLAP checkpoint's (``text_branch.*``,
 ``text_projection.{0,2}``, ``audio_branch.*``, ``audio_projection.{0,2}``).
 The audio towers' train mode (CLAP pretraining) takes a CPU
-``generator`` for its random draws. The BERT and BART text towers are a
-later slice."""
+``generator`` for its random draws."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,6 +27,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from lass_torch.models.clap.bert import (
+    BartConfig, BartEncoderModel, BertConfig, BertModel)
 from lass_torch.models.clap.htsat import HTSAT, HTSATConfig
 from lass_torch.models.clap.pann import PANN, PANNConfig
 from lass_torch.models.clap.roberta import RobertaConfig, RobertaModel
@@ -47,6 +59,44 @@ class CLAPTextEncoder(nn.Module):
                 ) -> torch.Tensor:
         _, pooled = self.text_branch(input_ids, attention_mask)
         return _normalize(self.text_projection(pooled))
+
+
+class CLAPBertTextEncoder(nn.Module):
+    """The BERT branch: pooler output -> text_projection -> L2 normalise
+    (model.py:503-516, :644-657). ``token_type_ids`` default to zeros."""
+
+    def __init__(self, bert_cfg: Optional[BertConfig] = None,
+                 joint_embed_dim: int = 512):
+        super().__init__()
+        cfg = bert_cfg or BertConfig()
+        self.text_branch = BertModel(cfg)
+        self.text_projection = MLPProjection(cfg.hidden_size, joint_embed_dim)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        _, pooled = self.text_branch(input_ids, attention_mask,
+                                     token_type_ids)
+        return _normalize(self.text_projection(pooled))
+
+
+class CLAPBartTextEncoder(nn.Module):
+    """The BART branch: the mean of the encoder's last hidden state over
+    ALL positions, padding included (model.py:533-546, :666-676, kept as
+    the reference has it: the embedding depends on the padded length) ->
+    text_projection -> L2 normalise."""
+
+    def __init__(self, bart_cfg: Optional[BartConfig] = None,
+                 joint_embed_dim: int = 512):
+        super().__init__()
+        cfg = bart_cfg or BartConfig()
+        self.text_branch = BartEncoderModel(cfg)
+        self.text_projection = MLPProjection(cfg.hidden_size, joint_embed_dim)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+                ) -> torch.Tensor:
+        hidden = self.text_branch(input_ids, attention_mask)
+        return _normalize(self.text_projection(hidden.mean(dim=1)))
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,31 @@ class _Embeddings(nn.Module):
         return self.LayerNorm(x)
 
 
+def attention_bias(attention_mask: torch.Tensor, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """(B, S) mask -> the additive (B, 1, 1, S) bias: 0 where kept, -1e9
+    where masked."""
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
+                       ).to(dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Multi-head attention of projected (B, S, H) queries, keys and values:
+    softmax(q k^T / sqrt(head_dim) + bias) v, heads merged back to (B, S,
+    H). The scores are scaled after the product, as the JAX layer does."""
+    b, s, h = q.shape
+    hd = h // num_heads
+
+    def heads(t):
+        return t.view(b, s, num_heads, hd).transpose(1, 2)
+
+    q, k, v = heads(q), heads(k), heads(v)
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+    probs = torch.softmax(scores + bias, dim=-1)
+    return torch.matmul(probs, v).transpose(1, 2).reshape(b, s, h)
+
+
 class _SelfAttention(nn.Module):
     def __init__(self, cfg: RobertaConfig):
         super().__init__()
@@ -64,16 +89,8 @@ class _SelfAttention(nn.Module):
         self.value = nn.Linear(h, h)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        b, s, h = x.shape
-        hd = h // self.num_heads
-
-        def heads(t):
-            return t.view(b, s, self.num_heads, hd).transpose(1, 2)
-
-        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        probs = torch.softmax(scores + bias, dim=-1)
-        return torch.matmul(probs, v).transpose(1, 2).reshape(b, s, h)
+        return attend(self.query(x), self.key(x), self.value(x), bias,
+                      self.num_heads)
 
 
 class _AttentionOutput(nn.Module):
@@ -141,8 +158,7 @@ class RobertaModel(nn.Module):
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.embeddings(input_ids)
-        bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9
-                           ).to(x.dtype)
+        bias = attention_bias(attention_mask, x.dtype)
         for layer in self.encoder.layer:
             x = layer(x, bias)
         return x, torch.tanh(self.pooler.dense(x[:, 0]))

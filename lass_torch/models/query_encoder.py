@@ -3,11 +3,13 @@ the reference CLAP_Encoder API (models/clap_encoder.py:93-106):
 ``get_query_embed(modality, audio=, text=, use_text_ratio=, seed=)`` ->
 (B, 512) normalized conditioning vectors on the encoder's device.
 
-- 'text': host tokenization -> RoBERTa + text_projection + L2 normalise,
-  behind a per-caption LRU. The encoder is frozen, so a caption's
-  embedding is a pure function of the string and rows assembled from the
-  cache equal recomputed ones. The cache is guarded by a lock: serving
-  threads share one encoder.
+- 'text': host tokenization -> the text branch (``tmodel``: RoBERTa by
+  default, BERT or BART, each with its tokenizer) + text_projection + L2
+  normalise, behind a per-caption LRU. The encoder is frozen, so a
+  caption's embedding is a pure function of the string and rows
+  assembled from the cache equal recomputed ones (BART's, whose mean
+  takes the padding in, within one ``pad_to`` bucket). The cache is
+  guarded by a lock: serving threads share one encoder.
 - 'audio' (after ``attach_audio_encoder``): resample to 48 kHz on the
   device, fill or crop to ``clip_samples``, HTSAT + audio_projection + L2
   normalise. The WHOLE batch is embedded: the reference embeds only the
@@ -22,18 +24,40 @@ from __future__ import annotations
 import logging
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from lass_torch.models.clap.bert import BartConfig, BertConfig
 from lass_torch.models.clap.htsat import HTSATConfig
-from lass_torch.models.clap.model import CLAPAudioEncoder, CLAPTextEncoder
+from lass_torch.models.clap.model import (
+    CLAPAudioEncoder, CLAPBartTextEncoder, CLAPBertTextEncoder,
+    CLAPTextEncoder)
 from lass_torch.models.clap.roberta import RobertaConfig
 from lass_torch.models.clap.tokenizer import (
-    RobertaBPETokenizer, WhitespaceFallbackTokenizer)
+    BartBPETokenizer, RobertaBPETokenizer, WhitespaceFallbackTokenizer,
+    WordPieceTokenizer)
 
 logger = logging.getLogger("lass_torch.query_encoder")
+
+# tmodel -> (text encoder, its default config, its tokenizer)
+_TEXT_BRANCHES = {
+    "roberta": (CLAPTextEncoder, RobertaConfig, RobertaBPETokenizer),
+    "bert": (CLAPBertTextEncoder, BertConfig, WordPieceTokenizer),
+    "bart": (CLAPBartTextEncoder, BartConfig, BartBPETokenizer),
+}
+
+
+def _text_config(tmodel: str, roberta_cfg: RobertaConfig,
+                 text_cfg: Optional[Any]):
+    """The text branch's config: roberta_cfg for RoBERTa, else text_cfg
+    (a BertConfig or BartConfig; None: bert-base-uncased or bart-base)."""
+    if tmodel not in _TEXT_BRANCHES:
+        raise ValueError(f"tmodel must be roberta/bert/bart, got {tmodel!r}")
+    if tmodel == "roberta":
+        return roberta_cfg
+    return text_cfg or _TEXT_BRANCHES[tmodel][1]()
 
 
 class CLAPQueryEncoder:
@@ -50,32 +74,36 @@ class CLAPQueryEncoder:
         text_embed_cache: int = 4096,
         rng_seed: int = 0,
         device: str = "cuda",
+        tmodel: str = "roberta",
+        text_cfg: Optional[Any] = None,
     ):
-        """text_state_dict: the CLAPTextEncoder's weights (``text_branch.*``
+        """text_state_dict: the text encoder's weights (``text_branch.*``
         + ``text_projection.*``); None builds random weights and warns.
+        tmodel: the text branch and its tokenizer, as the reference's
+        --tmodel: 'roberta' (byte-level BPE, vocab from
+        LASS_TPU_ROBERTA_VOCAB_DIR), 'bert' (WordPiece, LASS_TPU_BERT_VOCAB)
+        or 'bart' (byte-level BPE, LASS_TPU_BART_VOCAB_DIR); without its
+        vocab the hash fallback tokenizer is used. text_cfg: the BERT or
+        BART branch's config (BertConfig / BartConfig; None: bert-base or
+        bart-base); roberta_cfg: the RoBERTa branch's.
         text_embed_cache: LRU size in captions (0 disables). rng_seed
         seeds the 'hybird' coin of calls that pass no seed. The audio
         tower is attached with ``attach_audio_encoder``."""
         self.device = torch.device(device)
-        self.text_model = CLAPTextEncoder(roberta_cfg, joint_embed_dim)
+        self.tmodel = tmodel
+        cfg = _text_config(tmodel, roberta_cfg, text_cfg)
+        self.text_model = _TEXT_BRANCHES[tmodel][0](cfg, joint_embed_dim)
         self.has_pretrained_text = text_state_dict is not None
         if text_state_dict is not None:
             self.text_model.load_state_dict(text_state_dict)
         else:
             logger.warning(
                 "CLAPQueryEncoder built WITHOUT pretrained text weights — "
-                "conditioning embeddings are random-init. Load a converted "
-                "CLAP pack (CLAPQueryEncoder.from_npz).")
+                "conditioning embeddings are random-init %s. Load a "
+                "converted CLAP pack (CLAPQueryEncoder.from_npz).", tmodel)
         self.text_model.to(self.device).eval()
         if tokenizer is None:
-            try:
-                tokenizer = RobertaBPETokenizer()
-            except FileNotFoundError as exc:
-                logger.warning(
-                    "roberta vocab assets not found (%s) — falling back to "
-                    "the hash-bucket whitespace tokenizer. Token ids will "
-                    "NOT match the reference tokenizer.", exc)
-                tokenizer = WhitespaceFallbackTokenizer(roberta_cfg.vocab_size)
+            tokenizer = self._default_tokenizer(roberta_cfg)
         self.tokenizer = tokenizer
         self.using_fallback_tokenizer = isinstance(
             tokenizer, WhitespaceFallbackTokenizer)
@@ -92,22 +120,41 @@ class CLAPQueryEncoder:
         self.audio_model: Optional[CLAPAudioEncoder] = None
         self.has_pretrained_audio = False
 
+    def _default_tokenizer(self, roberta_cfg: RobertaConfig) -> Callable:
+        """The branch's tokenizer from its vocab's environment variable, or
+        the hash fallback with a warning, over bert-base's vocabulary for
+        BERT and the RoBERTa config's otherwise (as the JAX encoder)."""
+        try:
+            return _TEXT_BRANCHES[self.tmodel][2]()
+        except FileNotFoundError as exc:
+            logger.warning(
+                "%s vocab assets not found (%s) — falling back to the "
+                "hash-bucket whitespace tokenizer. Token ids will NOT "
+                "match the reference tokenizer.", self.tmodel, exc)
+            return WhitespaceFallbackTokenizer(
+                BertConfig.vocab_size if self.tmodel == "bert"
+                else roberta_cfg.vocab_size)
+
     @classmethod
     def from_npz(cls, path: str, roberta_cfg: RobertaConfig = RobertaConfig(),
                  htsat_cfg: Optional[HTSATConfig] = None,
                  **kwargs) -> "CLAPQueryEncoder":
-        """Build from a CLAP pack of scripts/convert_checkpoint.py
-        (``--kind clap``): the text branch and, when the pack has one
-        (``audio/params/...``, ``audio/batch_stats/...``), the HTSAT audio
-        branch at ``htsat_cfg`` (default HTSAT-base) and the default
-        ``attach_audio_encoder`` rates."""
+        """Build from a CLAP pack (``python -m lass_torch.convert_checkpoint
+        --kind clap``, or scripts/convert_checkpoint.py): the text branch
+        from ``text/params/{roberta|bert|bart}`` as ``tmodel`` in kwargs
+        picks (roberta by default; ``text_cfg`` its config) and, when the
+        pack has one (``audio/params/...``, ``audio/batch_stats/...``),
+        the HTSAT audio branch at ``htsat_cfg`` (default HTSAT-base) and
+        the default ``attach_audio_encoder`` rates."""
         from lass_torch.convert.checkpoint_io import load_npz_variables
         from lass_torch.convert.from_jax import (
             clap_audio_state_dict_from_jax, clap_text_state_dict_from_jax)
 
         pack = load_npz_variables(path)
-        sd = clap_text_state_dict_from_jax(pack["text"]["params"],
-                                           roberta_cfg.num_hidden_layers)
+        tmodel = kwargs.get("tmodel", "roberta")
+        cfg = _text_config(tmodel, roberta_cfg, kwargs.get("text_cfg"))
+        sd = clap_text_state_dict_from_jax(
+            pack["text"]["params"], cfg.num_hidden_layers, tmodel)
         enc = cls(text_state_dict=sd, roberta_cfg=roberta_cfg, **kwargs)
         if "audio" in pack:
             htsat_cfg = htsat_cfg or HTSATConfig()
