@@ -168,7 +168,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside it phase 10's FLAC CLI, which decodes through the native one.
    The phase runs (b), (c), then (a).
    ``python3 chip_smoke.py --phase 11`` runs phases 1, 2 and 11 only (on
-   four cards: W = 4).
+   four cards: W = 4);
+12. tensor parallelism, the trainer's prefetcher and the soak, full-width
+   ResUNet30. (a) On a (D x M) grid (``lass_torch.parallel.mesh.
+   make_grid``, ``lass_torch.parallel.tensor.shard_model``) at the
+   layouts of GRID_LAYOUTS, over gloo on one card (NCCL, one rank a card,
+   where there are enough cards), float32 with TF32 off, the premixed
+   step of PARALLEL_SEP_BATCH x 10 s, each rank fed its data rank's rows,
+   against one process fed the whole batch: the loss, the whole grads,
+   updated parameters and BN statistics within PARALLEL_REL (loss
+   PARALLEL_LOSS_REL), the replicated parameters and the BN running
+   statistics bitwise equal across each model group, each rank's
+   optimizer-moment bytes against the whole
+   model's; the second step's loss within PARALLEL_LOSS_REL (after two
+   AdamW steps the parameters' sign flips on noise-level grads add up,
+   so the second step is held by its loss); the checkpoint written at the
+   last layout resumed in one process: the grid's parameters exactly,
+   and its second step's loss within PARALLEL_LOSS_REL. (b) ``python
+   -m lass_torch.train`` through the prefetcher, bf16, TRAIN_BATCH x 10 s,
+   on phase 7's corpus: PREFETCH_CLI_STEPS steps in one process, and
+   under ``torch.distributed.run`` with ``--model_parallel 2`` (two
+   ranks, TRAIN_BATCH / 2 rows each: the same global batch) over gloo on
+   one card for SHARED_CLI_STEPS steps (over NCCL, a card each, for
+   PREFETCH_CLI_STEPS); the last logged window's steps/s and
+   ``Trainer.timing`` (its ``prefetch_h2d`` and ``prefetch_embed``, the
+   prefetch stream's CUDA-event spans, overlap the step) of each. (c) ``python -m lass_torch.soak`` at full
+   width, bf16, TRAIN_BATCH x 10 s (SOAK_ARGS): killed after its
+   checkpoint, resumed in a fresh process; its overlapping losses must be
+   byte-exact.
+   ``python3 chip_smoke.py --phase 12`` runs phases 1, 2 and 12 only;
+   with ``--across_cards``, of phase 12 only (a) and (b), the parts that
+   span cards (the four-card call: NCCL, one rank a card).
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
@@ -295,6 +325,16 @@ CODEC_SECONDS = 10.0
 CAPTION_PACK_ABS = 1e-6
 CAPTION_CPU_REL = 1e-4
 CLIP_BATCH = 16
+# phase 12: tensor parallelism's (data, model) layouts; the prefetching
+# CLI's steps and logging window (its steps/s is the last window's), and
+# those of the (1 x 2) grid's CLI where its ranks share one card over gloo
+# (a few steps: they hold its launches and timing keys, not a rate); the
+# soak's flags
+GRID_LAYOUTS = ((1, 2), (2, 2))
+PREFETCH_CLI_STEPS, PREFETCH_LOG_EVERY = 20, 10
+SHARED_CLI_STEPS, SHARED_LOG_EVERY = 4, 2
+SOAK_ARGS = ("--steps", "30", "--kill_after", "10", "--save_every", "10",
+             "--eval_every", "30", "--log_every", "5")
 RESULTS = {}
 
 
@@ -3223,6 +3263,392 @@ def data_parallel(build_dir):
     return results, launches
 
 
+def grid_world(data, model):
+    """Phase 12(a)'s backend for a (data x model) grid: NCCL with one rank
+    a card where there are enough cards, else gloo on one card."""
+    import torch
+
+    world = data * model
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def grid_separator(device, grid):
+    """``parity_separator``'s model (seed 0, float32, full width) sharded
+    over ``grid``, in an AudioSepTask over it (the optimizer built after
+    the sharding)."""
+    import torch
+
+    from lass_torch.data.mixer import SegmentMixer
+    from lass_torch.models.resunet import ResUNet30
+    from lass_torch.parallel.tensor import shard_model
+    from lass_torch.tasks.audiosep import AudioSepTask
+    from lass_torch.train.optim import build_optimizer
+
+    torch.manual_seed(0)
+    model = shard_model(ResUNet30().to(device), grid)
+    optimizer, scheduler = build_optimizer(
+        model.parameters(), "AdamW", 1e-3, "cosine_warm_up", 1, 100)
+    return AudioSepTask(model, SegmentMixer(), optimizer, scheduler,
+                        grid=grid)
+
+
+def grid_rank(rank, world, model_parallel, ref_path, ckpt_path):
+    """One rank of phase 12(a) (``run_local_ranks``): two premixed steps of
+    its data rank's rows on the grid, against the one-process run at
+    ``ref_path``; the checkpoint after the first step is written to
+    ``ckpt_path`` by rank 0. Returns the errors, a checksum of the
+    replicated parameters, the whole parameters' sum at the checkpoint,
+    the moment bytes and its launches."""
+    import zlib
+
+    import torch
+
+    from lass_torch.parallel.mesh import make_grid
+    from lass_torch.parallel.tensor import gather_full, sharded_dims
+    from lass_torch.train.checkpoint import snapshot
+
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid(model_parallel)
+    task = grid_separator(device, grid)
+    model = task.model
+    batch, _ = parity_batches()
+    per = PARALLEL_SEP_BATCH // grid.data_size
+    rows = {k: v[grid.data_rank * per:(grid.data_rank + 1) * per].to(device)
+            for k, v in batch.items()}
+    dims = sharded_dims(model)
+
+    def whole(name, t):
+        return gather_full(t, dims[name], grid) if name in dims else t
+
+    def flat(pairs):
+        return torch.cat([whole(n, t).detach().double().reshape(-1)
+                          for n, t in pairs])
+
+    ref = torch.load(ref_path, weights_only=True)
+
+    def rel(got, key):
+        r = ref[key].to(device).double()
+        return float((got - r).norm() / r.norm())
+
+    reset_kernel_counts()
+    m = task.train_step_premixed(rows)
+    errs = {"loss": abs(float(m["train_loss"]) - ref["loss"])
+            / abs(ref["loss"]),
+            "grads": rel(flat((n, p.grad) for n, p in
+                              model.named_parameters()), "grads"),
+            "params": rel(flat(model.named_parameters()), "params"),
+            "bn": rel(flat((k, v) for k, v in sorted(
+                model.state_dict().items()) if "running_" in k), "bn")}
+    replicated = b"".join(p.detach().cpu().numpy().tobytes()
+                          for n, p in model.named_parameters()
+                          if n not in dims) + b"".join(
+        v.cpu().numpy().tobytes() for k, v in sorted(
+            model.state_dict().items()) if "running_" in k)
+    moment_bytes = sum(v.nbytes for p in model.parameters()
+                       for v in task.optimizer.state[p].values()
+                       if v.dim() > 0)
+    whole_bytes = 3 * 4 * sum(whole(n, p).numel()
+                              for n, p in model.named_parameters())
+    params_sum = float(flat(model.named_parameters()).sum())
+    state = snapshot(task)
+    if rank == 0:
+        torch.save(state, ckpt_path)
+    del state
+    m = task.train_step_premixed(rows)
+    errs["loss2"] = abs(float(m["train_loss"]) - ref["loss2"]) \
+        / abs(ref["loss2"])
+    return {"errs": errs, "params_sum": params_sum,
+            "data_rank": grid.data_rank,
+            "model_rank": grid.model_rank,
+            "replicated_crc": zlib.crc32(replicated),
+            "moment_bytes": moment_bytes, "whole_moment_bytes": whole_bytes,
+            "sharded": len(dims), "launches": kernel_counts()}
+
+
+def grid_reference(device):
+    """Phase 12(a)'s one-process run: two premixed steps of the whole
+    batch; the first's loss, grads, parameters and BN statistics (flat,
+    float32, on the CPU) and the second's loss."""
+    import torch
+
+    def flat(tensors):
+        return torch.cat([t.detach().float().reshape(-1)
+                          for t in tensors]).cpu()
+
+    task = parity_separator(device)
+    batch, _ = parity_batches()
+    batch = {k: v.to(device) for k, v in batch.items()}
+    m = task.train_step_premixed(batch)
+    model = task.model
+    ref = {"loss": float(m["train_loss"]),
+           "grads": flat(p.grad for p in model.parameters()),
+           "params": flat(model.parameters()),
+           "bn": flat(v for k, v in sorted(model.state_dict().items())
+                      if "running_" in k)}
+    m = task.train_step_premixed(batch)
+    ref["loss2"] = float(m["train_loss"])
+    return ref, batch
+
+
+def grid_parity(build_dir):
+    """Phase 12(a) (module docstring). Returns its results and launches."""
+    import torch
+
+    from lass_torch.parallel.host import run_local_ranks
+
+    launches = {name: 0 for name, *_ in KERNELS}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ref_path = os.path.join(root, "reference.pt")
+        ref, batch = grid_reference(torch.device("cuda"))
+        torch.save(ref, ref_path)
+        del ref
+        torch.cuda.empty_cache()
+        for data, model in GRID_LAYOUTS:
+            world, backend = data * model, grid_world(data, model)
+            ckpt_path = os.path.join(root, f"grid_{data}x{model}.ckpt")
+            start = time.perf_counter()
+            ranks = run_local_ranks(grid_rank, world,
+                                    (model, ref_path, ckpt_path),
+                                    backend=backend, timeout_s=600)
+            seconds = time.perf_counter() - start
+            worst = {k: max(r["errs"][k] for r in ranks)
+                     for k in ranks[0]["errs"]}
+            groups = {}
+            for r in ranks:
+                groups.setdefault(r["data_rank"], set()).add(
+                    r["replicated_crc"])
+            res = {"backend": backend, "rel_err": worst,
+                   "replicated_bitwise_equal": all(
+                       len(c) == 1 for c in groups.values()),
+                   "moment_bytes_per_rank": [r["moment_bytes"]
+                                             for r in ranks],
+                   "whole_moment_bytes": ranks[0]["whole_moment_bytes"],
+                   "sharded_weights": ranks[0]["sharded"],
+                   "b1_launches_per_rank": [
+                       r["launches"]["apply_complex_mask_ri"]
+                       for r in ranks], "seconds": seconds}
+            out[f"{data}x{model}"] = res
+            for name in launches:
+                launches[name] += sum(r["launches"][name] for r in ranks)
+            log(f"phase 12a: grid (data {data} x model {model}), {world} "
+                f"ranks over {backend} on {torch.cuda.device_count()} "
+                f"card(s), float32, TF32 off, the premixed step of "
+                f"{PARALLEL_SEP_BATCH} x 10 s against one process: rel err "
+                f"{worst}; {res['sharded_weights']} weights sharded; "
+                f"replicated parameters and BN running statistics bitwise "
+                f"equal in every model group "
+                f"{res['replicated_bitwise_equal']}; optimizer moments per "
+                f"rank {[b / 2**20 for b in res['moment_bytes_per_rank']]} "
+                f"MiB of {res['whole_moment_bytes'] / 2**20:.1f} MiB whole; "
+                f"B1 launches per rank {res['b1_launches_per_rank']}; "
+                f"{seconds:.1f} s")
+            if not res["replicated_bitwise_equal"]:
+                raise AssertionError("replicated parameters or BN running "
+                                     "statistics differ inside a model "
+                                     "group")
+            if worst["loss"] > PARALLEL_LOSS_REL or worst["loss2"] > \
+                    PARALLEL_LOSS_REL or max(
+                        worst[k] for k in ("grads", "params", "bn")) > \
+                    PARALLEL_REL:
+                raise AssertionError(f"the {data} x {model} grid differs "
+                                     f"from one process: {worst}")
+            if max(res["moment_bytes_per_rank"]) >= \
+                    res["whole_moment_bytes"]:
+                raise AssertionError("the optimizer moments do not shard")
+            if res["b1_launches_per_rank"] != [2] * world:
+                raise AssertionError(f"B1 launches per rank "
+                                     f"{res['b1_launches_per_rank']}")
+        # the checkpoint written at the last layout, resumed in one process
+        data, model = GRID_LAYOUTS[-1]
+        ckpt = torch.load(os.path.join(root, f"grid_{data}x{model}.ckpt"),
+                          map_location="cpu", weights_only=True)
+        ref = torch.load(ref_path, weights_only=True)
+        task = parity_separator(torch.device("cuda"))
+        task.load_checkpoint_state(ckpt)
+        params_sum = float(torch.cat([p.detach().double().reshape(-1)
+                                      for p in task.model.parameters()]
+                                     ).sum())
+        reset_kernel_counts()
+        m = task.train_step_premixed(batch)
+        for name, n in kernel_counts().items():
+            launches[name] += n
+        resumed = {"step": task.step,
+                   "params_equal": params_sum == ranks[0]["params_sum"],
+                   "loss2": abs(float(m["train_loss"]) - ref["loss2"])
+                   / abs(ref["loss2"])}
+        out["resumed_in_one_process"] = resumed
+        log(f"phase 12a: the {data} x {model} grid's step-1 checkpoint in "
+            f"one process: its parameters the grid's exactly "
+            f"{resumed['params_equal']}; its step {resumed['step']} against "
+            f"the one-process run's, loss rel err {resumed['loss2']:.2e}")
+        if resumed["step"] != 2 or not resumed["params_equal"] or \
+                resumed["loss2"] > PARALLEL_LOSS_REL:
+            raise AssertionError("the grid's checkpoint did not resume in "
+                                 "one process")
+        del task, ckpt, ref, batch
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def fit_seconds(log_dir):
+    """The ``Trainer.timing`` a run logged ("fit seconds: {...}")."""
+    for name in sorted(os.listdir(log_dir), reverse=True):
+        with open(os.path.join(log_dir, name)) as f:
+            for line in f:
+                if "fit seconds: " in line:
+                    return ast.literal_eval(line.split("fit seconds: ")[1])
+    raise AssertionError(f"no fit seconds in {log_dir}")
+
+
+def prefetch_cli(build_dir, model_parallel):
+    """Phase 12(b): the train CLI through the prefetcher on phase 7's
+    corpus, bf16, TRAIN_BATCH x 10 s a step (global), in one process or on
+    a (1 x ``model_parallel``) grid under ``torch.distributed.run``;
+    returns its results and rank 0's launches."""
+    import numpy as np
+    import torch
+
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.parallel.host import free_port
+
+    ranks = model_parallel
+    # the launcher's backend (lass_torch.parallel.host): NCCL with a card
+    # a rank, gloo where the ranks outnumber the cards
+    shared = torch.cuda.device_count() < ranks
+    steps, log_every = ((SHARED_CLI_STEPS, SHARED_LOG_EVERY) if shared
+                        else (PREFETCH_CLI_STEPS, PREFETCH_LOG_EVERY))
+    datafile = make_synth_corpus(os.path.join(build_dir, "train_corpus"),
+                                 num_clips=4 * TRAIN_BATCH + 8,
+                                 seconds_min=8.0, seconds_max=14.0, seed=0)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        config = write_train_config(
+            os.path.join(root, "prefetch.yaml"), datafile,
+            batch_size=TRAIN_BATCH // ranks, segment_seconds=10,
+            num_workers=8, save_step_frequency=1000,
+            compute_dtype="bfloat16")
+        workspace = os.path.join(root, "run")
+        counts_path = os.path.join(root, "counts.json")
+        cmd = [sys.executable, "-m", "lass_torch.train"]
+        if ranks > 1:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                   "1", "--nproc_per_node", str(ranks), "--master_addr",
+                   "localhost", "--master_port", str(free_port()), "-m",
+                   "lass_torch.train", "--model_parallel",
+                   str(model_parallel)]
+        cmd += ["--workspace", workspace, "--config_yaml", config,
+                "--resume_checkpoint_path", "", "--max_steps", str(steps),
+                "--log_every", str(log_every), "--launch_counts",
+                counts_path]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=900)
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise RuntimeError(f"the prefetching CLI failed "
+                               f"({proc.returncode}):\n{proc.stdout[-3000:]}"
+                               f"\n{proc.stderr[-3000:]}")
+        sub = os.path.join("train", f"prefetch,devices={ranks}")
+        with open(os.path.join(workspace, "tf_logs", sub,
+                               "metrics.jsonl")) as f:
+            metrics = {r["step"]: r for r in map(json.loads, f)}
+        timing = fit_seconds(os.path.join(workspace, "logs", sub))
+        with open(counts_path) as f:
+            counts = json.load(f)
+    expect_steps = [1] + list(range(log_every, steps + 1, log_every))
+    losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+    res = {"ranks": ranks, "steps": steps,
+           "steps_per_s": {k: metrics[k]["steps_per_sec"]
+                           for k in sorted(metrics)},
+           "last_window_steps_per_s": metrics[steps]["steps_per_sec"],
+           "losses": losses, "timing": timing, "launches": counts,
+           "seconds": seconds}
+    what = ("one process" if ranks == 1 else
+            f"--model_parallel {model_parallel}, {ranks} ranks over "
+            f"{'gloo on one card' if shared else 'NCCL, a card each'}, "
+            f"{TRAIN_BATCH // ranks} rows each")
+    log(f"phase 12b: train CLI through the prefetcher, {what}, "
+        f"{TRAIN_BATCH} x 10 s bf16 a step: steps/s by window "
+        f"{res['steps_per_s']}, the last window (steps "
+        f"{steps - log_every + 1}-{steps}) "
+        f"{res['last_window_steps_per_s']:.3f} steps/s; rank 0's "
+        f"Trainer.timing (s) {timing}; launches {counts}; {seconds:.1f} s")
+    if sorted(metrics) != expect_steps or not np.isfinite(losses).all():
+        raise AssertionError(f"the prefetching CLI's metrics: {metrics}")
+    expect = {name: 0 for name, *_ in KERNELS}
+    expect["apply_complex_mask_ri"] = steps
+    if counts != expect:
+        raise AssertionError(f"the prefetching CLI launched {counts}, "
+                             f"expected {expect}")
+    if not (timing["prefetch_h2d"] > 0 and timing["prefetch_embed"] > 0):
+        raise AssertionError(f"the prefetch thread's timing: {timing}")
+    return res, counts
+
+
+def soak_run(build_dir):
+    """Phase 12(c): ``python -m lass_torch.soak`` at full width; returns
+    its report."""
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        report = os.path.join(root, "soak.json")
+        cmd = [sys.executable, "-m", "lass_torch.soak", *SOAK_ARGS,
+               "--batch", str(TRAIN_BATCH), "--workspace",
+               os.path.join(root, "ws"), "--report", report]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=900)
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise RuntimeError(f"the soak failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(report) as f:
+            out = json.load(f)
+    out["seconds"] = seconds
+    log(f"phase 12c: python -m lass_torch.soak {' '.join(SOAK_ARGS)} "
+        f"--batch {TRAIN_BATCH}, bf16 x 10 s: killed after step "
+        f"{out['killed_at_step']}, resumed from step "
+        f"{out['resumed_from_step']}, overlapping steps "
+        f"{out['overlap_steps_compared']} byte-exact "
+        f"{out['resume_byte_exact']}; loss first / last quintile "
+        f"{out['loss_first_quintile']:.5f} / {out['loss_last_quintile']:.5f}"
+        f"; steps/s after the resume {out['steps_per_sec_post_resume']} "
+        f"(stable {out['steps_per_sec_stable']}); eval "
+        f"{[{k: r[k] for k in ('step', 'eval_SDR')} for r in out['eval_records']]}"
+        f"; {seconds:.1f} s")
+    if not out["resume_byte_exact"]:
+        raise AssertionError("the soak's resumed losses are not byte-exact")
+    return out
+
+
+def tensor_parallel(build_dir, across_cards=False):
+    """Phase 12 (module docstring; (a) and (b) only with
+    ``across_cards``). Returns (results, launches)."""
+    start = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+    grid, launches = grid_parity(build_dir)
+    lap("grid")
+    cli = {}
+    for model_parallel in (1, 2):
+        cli[model_parallel], counts = prefetch_cli(build_dir, model_parallel)
+        for name in launches:
+            launches[name] += counts[name]
+    lap("cli")
+    results = {"grid": grid, "cli": cli}
+    if not across_cards:
+        results["soak"] = soak_run(build_dir)
+        lap("soak")
+    results.update(phase_s=time.perf_counter() - start, seconds=seconds)
+    log(f"phase 12: {results['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return results, launches
+
+
 def main():
     import argparse
 
@@ -3230,8 +3656,11 @@ def main():
 
     parser = argparse.ArgumentParser(description="Drive and check the "
                                      "PyTorch port on the card(s).")
-    parser.add_argument("--phase", type=int, choices=[11], default=None,
+    parser.add_argument("--phase", type=int, choices=[11, 12], default=None,
                         help="run phases 1, 2 and this one only")
+    parser.add_argument("--across_cards", action="store_true",
+                        help="with --phase 12: its parts that span cards "
+                             "only, (a) and (b) (the four-card call)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3262,6 +3691,10 @@ def main():
         RESULTS["parallel"], RESULTS["launches_phase11"] = data_parallel(
             build_dir)
         return finish(torch, details="chip_smoke_phase11.json")
+    if args.phase == 12:
+        RESULTS["tensor_parallel"], RESULTS["launches_phase12"] = \
+            tensor_parallel(build_dir, args.across_cards)
+        return finish(torch, details="chip_smoke_phase12.json")
 
     # 3. kernels vs plain; B2 has no caller in either package, so this
     # phase is its path: its launches are counted here
@@ -3407,6 +3840,12 @@ def main():
     for name, n in parallel_launches.items():
         launches[name] += n
     RESULTS.update(parallel=parallel, launches_phase11=parallel_launches)
+
+    # 12. tensor parallelism, the prefetching CLI, the soak
+    tp, tp_launches = tensor_parallel(build_dir)
+    for name, n in tp_launches.items():
+        launches[name] += n
+    RESULTS.update(tensor_parallel=tp, launches_phase12=tp_launches)
 
     kernels = []
     for name, _, _, source, replaces in KERNELS:

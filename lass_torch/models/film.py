@@ -96,13 +96,19 @@ class FusedFiLM(nn.Linear):
             nn.init.zeros_(self.bias)
 
     def forward(self, condition: torch.Tensor) -> Dict[str, Any]:
-        flat = super().forward(condition.float())
-        out: Dict[str, Any] = {}
-        offset = 0
-        for path, feat, _used in self.spec:
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = flat[:, offset:offset + feat]
-            offset += feat
-        return out
+        return split_film(super().forward(condition.float()), self.spec)
+
+
+def split_film(flat: torch.Tensor, spec: Tuple[FilmEntry, ...]
+               ) -> Dict[str, Any]:
+    """(B, sum C_i) fused FiLM output -> the nested dict of (B, C_i)
+    betas, in spec order."""
+    out: Dict[str, Any] = {}
+    offset = 0
+    for path, feat, _used in spec:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = flat[:, offset:offset + feat]
+        offset += feat
+    return out

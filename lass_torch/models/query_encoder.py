@@ -9,7 +9,11 @@ the reference CLAP_Encoder API (models/clap_encoder.py:93-106):
   caption's embedding is a pure function of the string and rows
   assembled from the cache equal recomputed ones (BART's, whose mean
   takes the padding in, within one ``pad_to`` bucket). The cache is
-  guarded by a lock: serving threads share one encoder.
+  guarded by a lock: serving threads share one encoder, and the trainer's
+  prefetch thread shares it with the eval hook. On a card each entry
+  keeps an event recorded on the stream that wrote it, and a hit's stream
+  waits on it and marks the row as used there, so rows cached on one
+  thread's stream are read safely on another's.
 - 'audio' (after ``attach_audio_encoder``): resample to 48 kHz on the
   device, fill or crop to ``clip_samples``, HTSAT + audio_projection + L2
   normalise. The WHOLE batch is embedded: the reference embeds only the
@@ -111,7 +115,8 @@ class CLAPQueryEncoder:
         self.pad_to = pad_to
         self._lock = threading.Lock()
         self._embed_cache_size = int(text_embed_cache)
-        self._embed_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+        # caption -> (row, the event after its write on a card, or None)
+        self._embed_cache: "OrderedDict[str, tuple]" = OrderedDict()
         self.embed_cache_hits = 0
         self.embed_cache_misses = 0
         self._rng = np.random.default_rng(rng_seed)
@@ -210,13 +215,24 @@ class CLAPQueryEncoder:
                 self.embed_cache_hits += 1
                 for t in texts:  # refresh LRU order
                     cache.move_to_end(t)
-                return torch.stack([cache[t] for t in texts])
+                entries = [cache[t] for t in texts]
+                if self.device.type == "cuda":
+                    stream = torch.cuda.current_stream(self.device)
+                    for row, event in entries:
+                        stream.wait_event(event)
+                        row.record_stream(stream)
+                return torch.stack([row for row, _ in entries])
             self.embed_cache_misses += 1
         # miss: embed the WHOLE batch outside the lock, cache every row
         out = self.embed_text_batch(texts)
+        rows = [row.clone() for row in out]
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         with self._lock:
-            for t, row in zip(texts, out):
-                cache[t] = row.clone()
+            for t, row in zip(texts, rows):
+                cache[t] = (row, event)
                 cache.move_to_end(t)
             while len(cache) > self._embed_cache_size:
                 cache.popitem(last=False)

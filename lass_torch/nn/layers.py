@@ -10,7 +10,8 @@ In a process group (``lass_torch.parallel``) its statistics are those of
 the global batch, as under lass_tpu's data-sharded jit (the reference's
 sync_batchnorm): ``GlobalBatchNorm`` gathers the ranks' statistics in the
 forward pass and all-reduces the two grad sums in the backward pass, and
-every rank updates its running statistics identically.
+every rank updates its running statistics identically. Under a (data x
+model) grid the ranks are the grid's data group (``process_group``).
 ``dropout`` draws its mask from an explicit generator, at the global
 batch's shape in a process group (each rank keeps its rows).
 """
@@ -23,12 +24,12 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lass_torch.parallel.host import gather_rows, is_distributed, row_span
+from lass_torch.parallel.host import gather_rows, group_info, row_span
 
 
-def _sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
+def _sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
     with torch.profiler.record_function("lass::bn_collective"):
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
     return x
 
 
@@ -46,7 +47,7 @@ class GlobalBatchNorm(torch.autograd.Function):
     (``lass_torch.parallel.mesh``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         c = x.shape[1]
         dims = [0, *range(2, x.dim())]
         shape = [1, c] + [1] * (x.dim() - 2)
@@ -54,7 +55,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         count = x.numel() // c
         local = torch.cat([mean, var * count, x.new_full((1,), count)])
         with torch.profiler.record_function("lass::bn_collective"):
-            ranks = gather_rows(local[None])
+            ranks = gather_rows(local[None], group)
         ranks = ranks.double()
         counts = ranks[:, 2 * c:]
         n = counts.sum()
@@ -65,6 +66,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         invstd = torch.rsqrt(var + eps)
         xhat = (x - mean.view(shape)) * invstd.view(shape)
         ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var, n)
         return xhat * weight.view(shape) + bias.view(shape), mean, var, n
 
@@ -75,16 +77,20 @@ class GlobalBatchNorm(torch.autograd.Function):
         dims = [0, *range(2, xhat.dim())]
         shape = [1, c] + [1] * (xhat.dim() - 2)
         dbias, dweight = gy.sum(dims), (gy * xhat).sum(dims)
-        sums = _sum_over_ranks(torch.cat([dbias, dweight])) / n
+        sums = _sum_over_ranks(torch.cat([dbias, dweight]), ctx.group) / n
         dx = (gy - sums[:c].view(shape) - xhat * sums[c:].view(shape)) \
             * (invstd * weight).view(shape)
-        return dx, dweight, dbias, None
+        return dx, dweight, dbias, None, None
 
 
 class BatchNorm(nn.BatchNorm2d):
     """Torch-semantics batch norm over feature dimension ``dim`` of an
     N-D activation (dim=1 for NCHW channels; ResUNet30's bn0 normalises the
-    frequency axis, dim=3)."""
+    frequency axis, dim=3). ``process_group``: the ranks whose rows it
+    normalises over (None: every rank; a grid's data group under tensor
+    parallelism, set by ``lass_torch.parallel.tensor.shard_model``)."""
+
+    process_group = None
 
     def __init__(self, num_features: int, momentum: float = 0.01,
                  eps: float = 1e-5, dim: int = 1):
@@ -102,7 +108,7 @@ class BatchNorm(nn.BatchNorm2d):
 
     def _global_forward(self, h: torch.Tensor) -> torch.Tensor:
         y, mean, var, n = GlobalBatchNorm.apply(h, self.weight, self.bias,
-                                                self.eps)
+                                                self.eps, self.process_group)
         with torch.no_grad():
             m = self.momentum
             self.num_batches_tracked.add_(1)
@@ -113,7 +119,8 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             h = x.float().movedim(self.dim, 1)
-            y = (self._global_forward(h) if is_distributed()
+            y = (self._global_forward(h)
+                 if group_info(self.process_group)[1] > 1
                  else super().forward(h))
             return y.movedim(1, self.dim).to(x.dtype)
         inv, shift = self.scale_shift()

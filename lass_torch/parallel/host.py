@@ -5,7 +5,9 @@ One process per card. ``python -m torch.distributed.run --nproc_per_node N
 -m lass_torch.<entry> ...`` sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
 and MASTER_PORT; ``initialize_distributed`` reads them (or takes explicit
 arguments, as ``initialize_multihost`` does) and joins the default process
-group: NCCL for the card, gloo only when the caller asks for the CPU. A
+group: NCCL for the cards, gloo when the caller asks for the CPU or when
+the launcher starts more ranks on this host than it has cards (NCCL
+refuses two ranks on one card; they share the cards round robin). A
 single-process run joins no group, and every helper below is then the
 identity.
 
@@ -17,6 +19,11 @@ and draws, the contrastive logits, train-mode draws) the port computes on
 the global batch too: ``gather_rows`` assembles it on every rank,
 ``local_rows`` takes this rank's rows back out, ``row_span`` says where
 they sit.
+
+Under a (data x model) grid (``lass_torch.parallel.mesh.make_grid``) what
+spans the batch spans the grid's data group: ``gather_rows``,
+``local_rows`` and ``all_reduce_mean`` take it as ``group`` (None: the
+default group, every rank).
 
 ``run_local_ranks`` starts W ranks on this host without a launcher, each
 in a fresh process (the tests' and the smoke's parity runs).
@@ -70,9 +77,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         if not torch.cuda.is_available():
             raise RuntimeError("a multi-card run needs CUDA; pass "
                                "device='cpu' for a gloo run on the CPU")
-        local = int(os.environ.get("LOCAL_RANK", (process_id or 0)
-                                   % torch.cuda.device_count()))
-        backend, dev = "nccl", torch.device("cuda", local)
+        cards = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", process_id or 0))
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) > cards
+        backend = "gloo" if shared else "nccl"
+        dev = torch.device("cuda", local % cards)
         torch.cuda.set_device(dev)
     if is_distributed():
         return dev
@@ -117,35 +126,44 @@ def row_span(rows: int) -> Tuple[int, int]:
     return rows * world, rows * rank
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows (b, ...) -> the global batch (world * b, ...) in
-    rank order, on every rank, outside autograd. Every rank must hold the
-    same number of rows."""
-    if not is_distributed() or dist.get_world_size() == 1:
+def group_info(group=None) -> Tuple[int, int]:
+    """(rank, size) in ``group`` (None: the default group); (0, 1) in a
+    single-process run."""
+    if not is_distributed():
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's rows (b, ...) -> the rows of every rank of ``group``
+    (None: every rank), (size * b, ...) in rank order, on every rank of
+    it, outside autograd. Every rank must hold the same number of rows."""
+    rank, size = group_info(group)
+    if size == 1:
         return x
     x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x)
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 
-def local_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch (world * b, ...) -> this rank's rows (b, ...)."""
-    rank, world = host_info()
-    if world == 1:
+def local_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``gather_rows``' output (size * b, ...) -> this rank's rows (b, ...)."""
+    rank, size = group_info(group)
+    if size == 1:
         return x
-    b = x.shape[0] // world
+    b = x.shape[0] // size
     return x[rank * b:(rank + 1) * b]
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks (a copy; ``x`` in a single-process
-    run)."""
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``group`` (None: every rank; a
+    copy; ``x`` in a single-process run)."""
     if not is_distributed():
         return x
     x = x.detach().clone()
-    dist.all_reduce(x)
-    return x / dist.get_world_size()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
 
 
 def sum_over_ranks(x: np.ndarray) -> np.ndarray:

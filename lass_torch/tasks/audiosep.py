@@ -16,6 +16,19 @@ global-size draws from the generator (the same seed and state on every
 rank) and keeps this rank's rows, and the loss it returns is the global
 mean.
 
+The task holds a (data x model) grid (``grid=``, the one the model was
+sharded over by ``lass_torch.parallel.tensor.shard_model``; by default
+``make_grid(1)``, which has no model axis and whose data group is every
+rank). The batch of every step, and of ``mix``'s output, is this rank's
+data rank's rows (the ranks of a model group hold the same rows;
+``gather_model_rows`` assembles them from the ranks' own and
+``own_rows`` takes a rank's own back out): what spans the batch (DDP,
+BatchNorm, the mix, the loss's mean) spans the data group, the replicated
+parameters' grads and BatchNorm's running statistics are averaged over
+the model group, and ``grad_norm`` is the norm of the whole grad. The
+checkpoint state is the whole model's and the whole moments' (gathered
+over the model group; restoring cuts this rank's slices).
+
 Two step flavours, as in the JAX package:
 - ``train_step(batch, generator)``: batch = {'waveform', 'condition'}; the
   mixer draws from ``generator`` (text-only conditioning);
@@ -30,8 +43,9 @@ import torch
 
 from lass_torch.data.mixer import SegmentMixer
 from lass_torch.losses import get_loss_function
+from lass_torch.parallel import tensor
 from lass_torch.parallel.host import all_reduce_mean, gather_rows, local_rows
-from lass_torch.parallel.mesh import data_parallel
+from lass_torch.parallel.mesh import Grid, data_parallel, make_grid
 from lass_torch.train.checkpoint import SeparatorCheckpoint
 
 
@@ -47,12 +61,15 @@ class AudioSepTask(SeparatorCheckpoint):
     def __init__(self, model: torch.nn.Module, mixer: SegmentMixer,
                  optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LRScheduler,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None,
+                 grid: Optional[Grid] = None):
         """model: {'mixture', 'condition'} -> {'waveform'}; optimizer and
         scheduler from ``lass_torch.train.optim.build_optimizer`` over the
-        model's parameters."""
+        model's parameters. ``grid``: the grid ``model`` was sharded over
+        (``shard_model``); None: ``make_grid(1)``."""
         self.model = model
-        self.train_model = data_parallel(model)
+        self.grid = grid if grid is not None else make_grid(1)
+        self.train_model = data_parallel(model, self.grid.data)
         self.mixer = mixer
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -68,14 +85,13 @@ class AudioSepTask(SeparatorCheckpoint):
         loss = self.loss_fn({"segment": out["waveform"][:, 0]},
                             {"segment": segments[:, 0]})
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        tensor.average_replicated(self.model, self.grid)
+        grad_norm = tensor.grad_norm(self.model, self.grid)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return {"train_loss": all_reduce_mean(loss.detach()),
+        return {"train_loss": all_reduce_mean(loss.detach(),
+                                              self.grid.data),
                 "grad_norm": grad_norm.detach()}
 
     def train_step(self, batch: Dict[str, torch.Tensor],
@@ -96,8 +112,25 @@ class AudioSepTask(SeparatorCheckpoint):
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """This rank's rows of the global batch's (mixtures, segments)."""
         mixtures, segments = self.mixer(
-            gather_rows(_decode_wire(waveforms)), generator)
-        return local_rows(mixtures), local_rows(segments)
+            gather_rows(_decode_wire(waveforms), self.grid.data),
+            generator)
+        return (local_rows(mixtures, self.grid.data),
+                local_rows(segments, self.grid.data))
+
+    def gather_model_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's own rows (b, ...) -> its data rank's (M * b, ...):
+        the model group's rows in rank order (int16 wire batches decoded
+        first); ``rows`` itself at M = 1."""
+        if self.grid.model_size == 1:
+            return rows
+        return gather_rows(_decode_wire(rows), self.grid.model)
+
+    def own_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``gather_model_rows``: the data rank's rows
+        (M * b, ...) -> this rank's own (b, ...)."""
+        if self.grid.model_size == 1:
+            return rows
+        return local_rows(rows, self.grid.model)
 
     @torch.no_grad()
     def eval_forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from lass_torch.losses import l1
+from lass_torch.parallel.mesh import make_grid
 from lass_torch.train.checkpoint import SeparatorCheckpoint
 
 
@@ -70,6 +71,7 @@ class MultiSTFTAudioSepTask(SeparatorCheckpoint):
         """model: a MultiSTFTResUNet30; optimizer and scheduler from
         ``lass_torch.train.optim.build_optimizer`` over ``parameters()``."""
         self.model = model
+        self.grid = make_grid(1)  # not sharded
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.loss_fn = loss_fn or l1

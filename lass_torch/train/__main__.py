@@ -22,7 +22,18 @@ Several cards, one process each:
         --workspace W --config_yaml C --resume_checkpoint_path ""
 
 (``train.batch_size_per_device`` rows per card; the directories end in
-``,devices=N``; rank 0 writes ``--launch_counts``). ``--profile PATH``
+``,devices=N``; rank 0 writes ``--launch_counts``). ``--model_parallel M``
+adds lass_tpu's model axis: the N ranks form an (N / M) x M grid and the
+wide layers and their optimizer moments are sharded over each group of M
+(``lass_torch.parallel.tensor``); the global batch stays N x
+``batch_size_per_device``. On the CPU (gloo):
+
+    python -m torch.distributed.run --nproc_per_node 2 -m lass_torch.train \
+        --workspace W --config_yaml C --resume_checkpoint_path "" \
+        --device cpu --model_parallel 2
+
+On cards the ranks take NCCL, or gloo where more ranks than cards run on
+one host. ``--profile PATH``
 profiles rank 0's steps after the first and writes their wall time and
 the device time of NCCL's kernels (and of BatchNorm's collectives apart)
 as JSON.
@@ -62,6 +73,9 @@ def main(argv=None):
     parser.add_argument("--log_every", type=int, default=50,
                         help="Steps between metric records (step 1 is "
                              "always recorded).")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="Tensor-parallel degree over the ranks (the "
+                             "grid's model axis).")
     parser.add_argument("--eval_indexes", type=str, default=None,
                         help="DCASE eval CSV for periodic evaluation "
                              "(every train.evaluate_step_frequency steps).")
@@ -85,7 +99,8 @@ def main(argv=None):
     trainer = Trainer(config_yaml=args.config_yaml, workspace=args.workspace,
                       resume_checkpoint_path=args.resume_checkpoint_path
                       or None, device=str(device),
-                      log_every=args.log_every)
+                      log_every=args.log_every,
+                      model_parallel=args.model_parallel)
     eval_hook = (make_dcase_eval_hook(args.eval_indexes, args.eval_audio_dir)
                  if args.eval_indexes else None)
     main_process = host_info()[0] == 0

@@ -16,7 +16,12 @@ steps. Each checkpoint is one file ``<directory>/<step>.ckpt`` written by
 
 A task takes on ``TaskCheckpoint`` and gives the ``state_dict`` of its own
 layout: ``SeparatorCheckpoint`` gives the separator tasks' above, the CLAP
-tasks give their flat CLAP (or probe) state dict.
+tasks give their flat CLAP (or probe) state dict. A separator sharded over
+a grid's model axis (the task's ``grid``) writes its whole model and whole
+optimizer moments, gathered over the model group, so a checkpoint written
+at any layout resumes at any other; restoring cuts each rank's slices.
+Under a grid every rank of a model group takes the snapshot together
+(``snapshot``), and one writes it (``write_async``).
 
 ``save_async`` copies the state to host memory on the caller's thread (the
 next step updates the parameters in place) and writes the file on a
@@ -34,6 +39,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from lass_torch.convert.checkpoint_io import separator_layout, unpack_film
+from lass_torch.parallel import tensor
 
 _NAME = re.compile(r"^(\d+)\.ckpt$")
 
@@ -55,28 +61,38 @@ class TaskCheckpoint:
 
     def checkpoint_state(self) -> Dict[str, Any]:
         return {"state_dict": self.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": self.optimizer_state_dict(),
                 "scheduler": self.scheduler.state_dict(),
                 "step": int(self.step)}
 
     def load_checkpoint_state(self, blob: Dict[str, Any]) -> None:
         self.load_state_dict(blob["state_dict"])
-        self.optimizer.load_state_dict(blob["optimizer"])
+        self.load_optimizer_state_dict(blob["optimizer"])
         self.scheduler.load_state_dict(blob["scheduler"])
         self.step = int(blob["step"])
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        return self.optimizer.state_dict()
+
+    def load_optimizer_state_dict(self, state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(state)
 
 
 class SeparatorCheckpoint(TaskCheckpoint):
     """The separator tasks' layout: ``model`` under ``ss_model.``, its FiLM
     cut per path by its own spec (``model.film.spec``); every other module
-    of ``modules()`` (the negative-query fusion) under its own name."""
+    of ``modules()`` (the negative-query fusion) under its own name.
+    ``grid``: the grid ``model`` is sharded over (``make_grid(1)``: not
+    sharded)."""
 
     def modules(self) -> Dict[str, torch.nn.Module]:
         """Everything the task trains, by checkpoint name."""
         return {"model": self.model}
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        sd = unpack_film(self.model.state_dict(), self.model.film.spec)
+        sd = tensor.full_state_dict(self.model, self.model.state_dict(),
+                                    self.grid)
+        sd = unpack_film(sd, self.model.film.spec)
         state_dict = {f"ss_model.{k}": v for k, v in sd.items()}
         for name, module in self.modules().items():
             if name != "model":
@@ -85,13 +101,22 @@ class SeparatorCheckpoint(TaskCheckpoint):
         return state_dict
 
     def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
-        self.model.load_state_dict(separator_layout(sd,
-                                                    self.model.film.spec))
+        self.model.load_state_dict(tensor.local_state_dict(
+            self.model, separator_layout(sd, self.model.film.spec),
+            self.grid))
         for name, module in self.modules().items():
             if name != "model":
                 prefix = f"{name}."
                 module.load_state_dict({k[len(prefix):]: v for k, v in
                                         sd.items() if k.startswith(prefix)})
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        return tensor.full_optimizer_state(
+            self.model, self.optimizer.state_dict(), self.grid)
+
+    def load_optimizer_state_dict(self, state: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(tensor.local_optimizer_state(
+            self.model, state, self.grid))
 
 
 def snapshot(task: TaskCheckpoint,
@@ -128,7 +153,12 @@ class CheckpointManager:
         """Snapshot now, write in the background; at most one write is in
         flight (a second save waits for the first)."""
         self.wait()
-        state = snapshot(task, generator)
+        self.write_async(step, snapshot(task, generator))
+
+    def write_async(self, step: int, state: Dict[str, Any]) -> None:
+        """Write a ``snapshot`` in the background (after the write in
+        flight, if any)."""
+        self.wait()
 
         def work():
             try:

@@ -7,12 +7,16 @@ query encoder, checkpoints at step 1 and every ``save_step_frequency``
 steps, metrics to ``metrics.jsonl`` and resume.
 
 A host thread (``datamodule.BatchLoader``) decodes and crops batches a few
-ahead; the main thread encodes the wire format, uploads, embeds the
-conditions and runs the step. The loader thread is closed and joined on
-every way out of ``fit``. Resume restores model, optimizer, scheduler,
-step and the mixer's generator, and skips the batches already trained on
-without decoding them, so a resumed run sees the batches and mixes an
-uninterrupted run would.
+ahead; a second one (``prefetch.DevicePrefetcher``, on its own stream on a
+card) encodes the wire format, uploads and, in text-only conditioning,
+embeds the captions two batches ahead of the step, and times the upload
+and the embed (``prefetch_h2d``, ``prefetch_embed``; CUDA events on its
+stream, so it never waits for the card); the main thread runs the step
+(and, under a grid, gathers its data rank's rows). Both threads
+are closed and joined on every way out of ``fit``. Resume restores model,
+optimizer, scheduler, step and the mixer's generator, and skips the
+batches already trained on without decoding them, so a resumed run sees
+the batches, mixes and conditions an uninterrupted run would.
 
 Conditioning: with ``model.use_text_ratio`` 1 (the recipe) the captions;
 below 1 ('hybird', which needs the query encoder's audio tower,
@@ -20,7 +24,11 @@ below 1 ('hybird', which needs the query encoder's audio tower,
 one coin, seeded by the step (``random_seed * 1000003 + step``, so a
 resumed run draws what the uninterrupted one drew): the captions, or the
 mixed segments through the audio tower (reference audiosep.py:77-88
-embeds the segments after the mixer); then the premixed step.
+embeds the segments after the mixer); then the premixed step. The mix
+and that embed run on the main thread (they need the step's generator
+and the mixed segments); under a grid each rank embeds its own rows (the
+model group's ranks draw the same coin) and the model group gathers the
+conditions.
 
 ``fit(eval_hook=)`` runs a hook (``make_dcase_eval_hook``: the DCASE
 evaluator on the training model) every ``train.evaluate_step_frequency``
@@ -38,6 +46,18 @@ statistics and the checkpoints (the bare model, so one written at any
 world size resumes at any other and serves through ``load_ss_model``) and
 runs the eval hook, and every rank waits at the end of ``fit`` until rank
 0's last checkpoint is on disk.
+
+Tensor parallelism (``model_parallel`` M > 1, lass_tpu's ``--model_parallel``):
+the ranks form a (W / M) x M grid (``lass_torch.parallel.mesh.make_grid``),
+the model's wide layers are sharded over each model group
+(``lass_torch.parallel.tensor.shard_model``) and so are the optimizer's
+moments. Each rank still loads ``batch_size_per_device`` rows of its
+strided share; a model group's ranks gather theirs (its data rank's rows)
+on the main thread before the step, so the step at any layout of W ranks
+is the function of the same W x ``batch_size_per_device`` global batch as
+the W-rank data-parallel step (and as lass_tpu's, whose global batch is
+``batch_size_per_device * len(devices)``). Every rank joins the
+checkpoint's gathers; rank 0 writes the whole model.
 """
 from __future__ import annotations
 
@@ -58,9 +78,13 @@ from lass_torch.losses import get_loss_function
 from lass_torch.models.query_encoder import CLAPQueryEncoder
 from lass_torch.models.resunet import build_model
 from lass_torch.parallel.host import barrier, host_info
+from lass_torch.parallel.mesh import make_grid
+from lass_torch.parallel.tensor import shard_model
 from lass_torch.tasks.audiosep import AudioSepTask
-from lass_torch.train.checkpoint import CheckpointManager, restore_file
+from lass_torch.train.checkpoint import (
+    CheckpointManager, restore_file, snapshot)
 from lass_torch.train.optim import build_optimizer
+from lass_torch.train.prefetch import DevicePrefetcher, span, upload
 from lass_torch.utils.logging import MetricsLogger, create_logging
 from lass_torch.utils.statistics import StatisticsContainer
 
@@ -109,7 +133,9 @@ class Trainer:
                  resume_checkpoint_path: Optional[str] = None,
                  query_encoder: Optional[CLAPQueryEncoder] = None,
                  device: str = "cuda", filename: str = "train",
-                 log_every: int = LOG_EVERY):
+                 log_every: int = LOG_EVERY, model_parallel: int = 1):
+        """``model_parallel``: the model axis of the grid (1: data
+        parallelism only)."""
         self.cfg = cfg = load_config(config_yaml)
         self.device = torch.device(device)
         self.rank, world = host_info()
@@ -131,6 +157,8 @@ class Trainer:
 
         torch.manual_seed(cfg.train.random_seed)
         model = build_model(cfg).to(self.device)
+        self.grid = make_grid(model_parallel)
+        shard_model(model, self.grid)
         opt = cfg.train.optimizer
         optimizer, scheduler = build_optimizer(
             model.parameters(), opt.optimizer_type, opt.learning_rate,
@@ -139,7 +167,8 @@ class Trainer:
             model, SegmentMixer(cfg.data.max_mix_num,
                                 cfg.data.loudness_norm.lower_db,
                                 cfg.data.loudness_norm.higher_db),
-            optimizer, scheduler, get_loss_function(cfg.train.loss_type))
+            optimizer, scheduler, get_loss_function(cfg.train.loss_type),
+            grid=self.grid)
         # the mixer's draws; its state is checkpointed with the model
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.random_seed + 1)
@@ -164,30 +193,48 @@ class Trainer:
             path = _resume_path(resume_checkpoint_path)
             restore_file(path, self.task, self.generator)
             logging.info("resumed from %s at step %d", path, self.task.step)
-        # wall-clock split of fit(): waiting for the loader, host->device
-        # upload + conditioning (hybrid: + the mix), the step, metric
-        # reads, saves, the eval hook
+        # wall-clock split of fit() on the main thread: waiting for the
+        # prefetcher, the main thread's part of a batch (the grid's row
+        # gather; hybrid: + the mix and the condition), the step, metric
+        # reads, saves, the eval hook; and the prefetch thread's spans,
+        # which overlap the others: the upload and the caption embed
         self.timing = {"data_wait": 0.0, "prepare": 0.0, "step": 0.0,
-                       "metrics_fetch": 0.0, "save_block": 0.0, "eval": 0.0}
+                       "metrics_fetch": 0.0, "save_block": 0.0, "eval": 0.0,
+                       "prefetch_embed": 0.0, "prefetch_h2d": 0.0}
 
-    def _prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Upload and condition one batch: text-only -> {'waveform',
-        'condition'} for ``train_step``; hybrid -> {'mixture', 'segment',
-        'condition'} for ``train_step_premixed``."""
+    def _prefetch(self, i: int, batch: Dict) -> Dict:
+        """The prefetch thread's part of a batch (no collective): upload
+        the wire batch; text-only conditioning also embeds the captions
+        (-> {'waveform', 'condition'}), hybrid keeps them for the main
+        thread (-> {'waveform', 'text'})."""
         at = batch["audio_text"]
-        waveform = torch.from_numpy(_encode_wire(
-            at["waveform"], self.cfg.train.wire_dtype)).to(self.device)
-        if self.use_text_ratio >= 1.0:
+        with span("prefetch_h2d"):
+            waveform = upload(_encode_wire(at["waveform"],
+                                           self.cfg.train.wire_dtype),
+                              self.device)
+        if self.use_text_ratio < 1.0:
+            return {"waveform": waveform, "text": at["text"]}
+        with span("prefetch_embed"):
             condition = self.query_encoder.get_query_embed(
-                "text", text=at["text"])
-            return {"waveform": waveform, "condition": condition.clone()}
-        mixtures, segments = self.task.mix(waveform, self.generator)
-        seed = self.cfg.train.random_seed * 1000003 + self.task.step
+                "text", text=at["text"]).clone()
+        return {"waveform": waveform, "condition": condition}
+
+    def _prepare(self, item: Dict) -> Dict[str, torch.Tensor]:
+        """The main thread's part: text-only -> {'waveform', 'condition'}
+        for ``train_step``; hybrid -> {'mixture', 'segment', 'condition'}
+        for ``train_step_premixed``; under a grid, the data rank's rows."""
+        task = self.task
+        waveform = task.gather_model_rows(item["waveform"])
+        if "condition" in item:
+            return {"waveform": waveform,
+                    "condition": task.gather_model_rows(item["condition"])}
+        mixtures, segments = task.mix(waveform, self.generator)
+        seed = self.cfg.train.random_seed * 1000003 + task.step
         condition = self.query_encoder.get_query_embed(
-            "hybird", text=at["text"], audio=segments[:, 0],
+            "hybird", text=item["text"], audio=task.own_rows(segments)[:, 0],
             use_text_ratio=self.use_text_ratio, seed=seed)
         return {"mixture": mixtures, "segment": segments,
-                "condition": condition.clone()}
+                "condition": task.gather_model_rows(condition.clone())}
 
     def fit(self, max_steps: Optional[int] = None,
             eval_hook: Optional[Callable] = None,
@@ -203,17 +250,21 @@ class Trainer:
         if max_steps is not None:
             stop_at = min(stop_at, max_steps)
         step = self.task.step
+        sharded = self.grid.model_size > 1
         t_last, steps_since = pc(), 0
         loader = self.datamodule.train_dataloader(skip_batches=step)
+        prefetch = None
         try:
+            prefetch = DevicePrefetcher(loader, self._prefetch, self.device,
+                                        timing)
             while step < stop_at:
                 t0 = pc()
-                batch = next(loader, None)
+                item = next(prefetch, None)
                 timing["data_wait"] += pc() - t0
-                if batch is None:
+                if item is None:
                     break
                 t0 = pc()
-                data = self._prepare(batch)
+                data = self._prepare(item)
                 timing["prepare"] += pc() - t0
                 t0 = pc()
                 if "waveform" in data:
@@ -237,22 +288,31 @@ class Trainer:
                                             "steps_per_sec": sps})
                 if step_hook is not None:
                     step_hook(step)
-                if eval_hook is not None and self.main_process and \
+                # under a grid the model's forward gathers over the model
+                # group, so every rank runs the hook; rank 0 records it
+                if eval_hook is not None and (
+                        self.main_process or sharded) and \
                         step % cfg.train.evaluate_step_frequency == 0:
                     t0 = pc()
                     eval_metrics = eval_hook(self, step)
-                    if eval_metrics:
+                    if eval_metrics and self.main_process:
                         self.metrics.log(step, eval_metrics)
                         self.statistics.append(step, eval_metrics, "test")
                         logging.info("eval @ %d: %s", step, eval_metrics)
                     seconds = pc() - t0
                     timing["eval"] += seconds
                     t_last += seconds  # keep the steps/s windows eval-free
-                if self.main_process and self.ckpt.should_save(step):
+                if self.ckpt.should_save(step) and (
+                        self.main_process or sharded):
+                    # under a grid every rank joins the snapshot's gathers
                     t0 = pc()
-                    self.ckpt.save_async(step, self.task, self.generator)
+                    state = snapshot(self.task, self.generator)
+                    if self.main_process:
+                        self.ckpt.write_async(step, state)
                     timing["save_block"] += pc() - t0
         finally:
+            if prefetch is not None:
+                prefetch.close()
             loader.close()
             self.ckpt.wait()
             self.metrics.finish()
