@@ -198,7 +198,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    byte-exact.
    ``python3 chip_smoke.py --phase 12`` runs phases 1, 2 and 12 only;
    with ``--across_cards``, of phase 12 only (a) and (b), the parts that
-   span cards (the four-card call: NCCL, one rank a card).
+   span cards (the four-card call: NCCL, one rank a card);
+13. training rematerialization (ResUNet30's ``remat``, LASS_TPU_REMAT),
+   full width, seeded weights. (a) One float32 ``train_step`` (TF32 off,
+   deterministic cuDNN) of REMAT_PARITY_BATCH x 1 s from the same weights,
+   batch and generator under 'none', 'wide' and 'all': the loss, every
+   grad, every updated parameter and BN running statistic of 'wide' and
+   'all' within REMAT_REL of 'none' (the largest per tensor printed),
+   ``num_batches_tracked`` exactly 1. (b) Phase 6's bf16 step of
+   TRAIN_BATCH x 10 s in each mode: step ms, steps/s, peak GiB; the peak
+   again at the second batch of REMAT_FIT_BATCHES, and from the two the
+   fixed and per-clip bytes and the largest batch that fits
+   REMAT_MEMORY_SHARE of the card's memory, for each mode; then ``python
+   -m lass_torch.train`` for REMAT_CLI_STEPS steps of REMAT_CLI_ROWS rows
+   (the shipped config's) with LASS_TPU_REMAT set to the cheapest mode the
+   fit says holds them, or, where none does, of the largest batch the fit
+   gives 'all' (said on a line): finite losses, the mode in its first
+   metrics record, one B1 launch a step. No out-of-memory error is
+   caught. (c) Phase 12(a)'s (2 x 2) grid under 'all' against the same
+   one-process run ('none') within the same bounds: the recompute repeats
+   the global BatchNorm's and the column-parallel layers' gathers.
+   ``python3 chip_smoke.py --phase 13`` runs phases 1, 2 and 13 only.
 
 The last lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the lines before them give
@@ -335,6 +355,20 @@ PREFETCH_CLI_STEPS, PREFETCH_LOG_EVERY = 20, 10
 SHARED_CLI_STEPS, SHARED_LOG_EVERY = 4, 2
 SOAK_ARGS = ("--steps", "30", "--kill_after", "10", "--save_every", "10",
              "--eval_every", "30", "--log_every", "5")
+# phase 13: training rematerialization (ResUNet30's ``remat``, in the
+# order of their cost in step time). (a) the float32 parity step's clips
+# of 1 s and its bound; (b) the two batches of 10 s clips whose peaks fit
+# fixed + per-clip bytes, the share of the card's memory the fitted batch
+# may fill (the rest: the CUDA context, the caption encoder of the CLI,
+# the allocator's fragmentation), the shipped config's rows a card
+# (config/audiosep_base.yaml) and the CLI's steps
+REMAT_MODES = ("none", "wide", "all")
+REMAT_PARITY_BATCH = 2
+REMAT_REL = 1e-5
+REMAT_FIT_BATCHES = (16, 32)
+REMAT_MEMORY_SHARE = 0.9
+REMAT_CLI_ROWS = 128
+REMAT_CLI_STEPS = 3
 RESULTS = {}
 
 
@@ -1746,9 +1780,10 @@ def time_timetap():
             "launches": launches}, rows
 
 
-def bf16_train_task(sep, batch):
-    """A bf16 AudioSepTask on the served weights, a generator and an
-    on-card batch of ``batch`` clips of 10 s with random conditions."""
+def bf16_train_task(state, batch, remat=None):
+    """A bf16 AudioSepTask on the weights ``state`` (a ResUNet30 state
+    dict) with ``remat`` (None: LASS_TPU_REMAT), a generator and an on-card
+    batch of ``batch`` clips of 10 s with random conditions."""
     import torch
 
     from lass_torch.data.mixer import SegmentMixer
@@ -1756,8 +1791,8 @@ def bf16_train_task(sep, batch):
     from lass_torch.tasks.audiosep import AudioSepTask
     from lass_torch.train.optim import build_optimizer
 
-    model = ResUNet30(compute_dtype=torch.bfloat16).cuda()
-    model.load_state_dict(sep.model.state_dict())
+    model = ResUNet30(compute_dtype=torch.bfloat16, remat=remat).cuda()
+    model.load_state_dict(state)
     optimizer, scheduler = build_optimizer(
         model.parameters(), "AdamW", 1e-3, "constant_warm_up", 10000,
         1000000)
@@ -1778,7 +1813,7 @@ def time_hybrid_steps(sep, batch, steps=5):
     steps/s at use_text_ratio 0.5 is two steps over their sum."""
     import torch
 
-    task, gen, data = bf16_train_task(sep, batch)
+    task, gen, data = bf16_train_task(sep.model.state_dict(), batch)
     enc = sep.query_encoder
     captions = [f"training clip {i}" for i in range(batch)]
 
@@ -1808,17 +1843,22 @@ def time_hybrid_steps(sep, batch, steps=5):
     return out
 
 
-def time_train_steps(sep, batch, steps=5):
+def time_train_steps(state, batch, steps=5, warmup=2, remat=None):
     """Phase 6: train steps/s and peak memory of the bf16 train step at
-    the phase-7 shape (``batch`` clips of 10 s), the served weights, an
-    on-card batch; host clock around synchronised steps after 2 warm-up
-    steps."""
+    the phase-7 shape (``batch`` clips of 10 s), the weights ``state``
+    (phase 6: the served ones), an on-card batch; host clock around
+    synchronised steps after ``warmup`` warm-up steps. Phase 13 also sets
+    ``remat`` and the step counts."""
+    import gc
+
     import torch
 
-    task, gen, data = bf16_train_task(sep, batch)
+    gc.collect()  # the peak counts this task's tensors and nothing older
+    torch.cuda.empty_cache()
+    task, gen, data = bf16_train_task(state, batch, remat)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
+    for _ in range(warmup):
         task.train_step(data, gen)
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -1834,17 +1874,18 @@ def time_train_steps(sep, batch, steps=5):
 
 
 def run_train_cli(workspace, config, resume, counts_path, max_steps=4,
-                  extra=()):
-    """``python -m lass_torch.train`` in a subprocess on the card; returns
-    its metrics by step (the train and eval records of a step merged), its
-    checkpoint steps and its kernel launches."""
+                  extra=(), env=None):
+    """``python -m lass_torch.train`` in a subprocess on the card (``env``:
+    variables to set in its environment); returns its metrics by step (the
+    train and eval records of a step merged), its checkpoint steps and its
+    kernel launches."""
     cmd = [sys.executable, "-m", "lass_torch.train", "--workspace",
            workspace, "--config_yaml", config, "--resume_checkpoint_path",
            resume, "--max_steps", str(max_steps), "--log_every", "1",
            "--launch_counts", counts_path, *extra]
     start = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=600, env={**os.environ, **(env or {})})
     seconds = time.perf_counter() - start
     if proc.returncode != 0:
         raise RuntimeError(f"training failed ({proc.returncode}):\n"
@@ -3272,10 +3313,10 @@ def grid_world(data, model):
     return "nccl" if torch.cuda.device_count() >= world else "gloo"
 
 
-def grid_separator(device, grid):
-    """``parity_separator``'s model (seed 0, float32, full width) sharded
-    over ``grid``, in an AudioSepTask over it (the optimizer built after
-    the sharding)."""
+def grid_separator(device, grid, remat=None):
+    """``parity_separator``'s model (seed 0, float32, full width, training
+    remat ``remat``) sharded over ``grid``, in an AudioSepTask over it (the
+    optimizer built after the sharding)."""
     import torch
 
     from lass_torch.data.mixer import SegmentMixer
@@ -3285,20 +3326,20 @@ def grid_separator(device, grid):
     from lass_torch.train.optim import build_optimizer
 
     torch.manual_seed(0)
-    model = shard_model(ResUNet30().to(device), grid)
+    model = shard_model(ResUNet30(remat=remat).to(device), grid)
     optimizer, scheduler = build_optimizer(
         model.parameters(), "AdamW", 1e-3, "cosine_warm_up", 1, 100)
     return AudioSepTask(model, SegmentMixer(), optimizer, scheduler,
                         grid=grid)
 
 
-def grid_rank(rank, world, model_parallel, ref_path, ckpt_path):
-    """One rank of phase 12(a) (``run_local_ranks``): two premixed steps of
-    its data rank's rows on the grid, against the one-process run at
-    ``ref_path``; the checkpoint after the first step is written to
-    ``ckpt_path`` by rank 0. Returns the errors, a checksum of the
-    replicated parameters, the whole parameters' sum at the checkpoint,
-    the moment bytes and its launches."""
+def grid_rank(rank, world, model_parallel, ref_path, ckpt_path, remat=None):
+    """One rank of phase 12(a) (``run_local_ranks``; phase 13(c) with
+    ``remat``): two premixed steps of its data rank's rows on the grid,
+    against the one-process run at ``ref_path``; the checkpoint after the
+    first step is written to ``ckpt_path`` by rank 0. Returns the errors,
+    a checksum of the replicated parameters, the whole parameters' sum at
+    the checkpoint, the moment bytes and its launches."""
     import zlib
 
     import torch
@@ -3312,7 +3353,7 @@ def grid_rank(rank, world, model_parallel, ref_path, ckpt_path):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     grid = make_grid(model_parallel)
-    task = grid_separator(device, grid)
+    task = grid_separator(device, grid, remat)
     model = task.model
     batch, _ = parity_batches()
     per = PARALLEL_SEP_BATCH // grid.data_size
@@ -3393,11 +3434,66 @@ def grid_reference(device):
     return ref, batch
 
 
-def grid_parity(build_dir):
-    """Phase 12(a) (module docstring). Returns its results and launches."""
+def grid_layout(root, ref_path, data, model, remat=None):
+    """One (data x model) grid of phase 12(a) against the one-process run
+    at ``ref_path`` (phase 13(c): under ``remat``), its checks; its rank-0
+    checkpoint after the first step goes to ``root``. Returns its results,
+    its launches and the ranks' returns."""
     import torch
 
     from lass_torch.parallel.host import run_local_ranks
+
+    world, backend = data * model, grid_world(data, model)
+    ckpt_path = os.path.join(root, f"grid_{data}x{model}.ckpt")
+    start = time.perf_counter()
+    ranks = run_local_ranks(grid_rank, world,
+                            (model, ref_path, ckpt_path, remat),
+                            backend=backend, timeout_s=600)
+    seconds = time.perf_counter() - start
+    worst = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
+    groups = {}
+    for r in ranks:
+        groups.setdefault(r["data_rank"], set()).add(r["replicated_crc"])
+    res = {"backend": backend, "rel_err": worst,
+           "replicated_bitwise_equal": all(
+               len(c) == 1 for c in groups.values()),
+           "moment_bytes_per_rank": [r["moment_bytes"] for r in ranks],
+           "whole_moment_bytes": ranks[0]["whole_moment_bytes"],
+           "sharded_weights": ranks[0]["sharded"],
+           "b1_launches_per_rank": [r["launches"]["apply_complex_mask_ri"]
+                                    for r in ranks], "seconds": seconds}
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name, *_ in KERNELS}
+    log(f"phase {'13c' if remat else '12a'}: grid (data {data} x model "
+        f"{model}){f', remat {remat}' if remat else ''}, {world} ranks over "
+        f"{backend} on {torch.cuda.device_count()} card(s), float32, TF32 "
+        f"off, the premixed step of {PARALLEL_SEP_BATCH} x 10 s against one "
+        f"process: rel err {worst}; {res['sharded_weights']} weights "
+        f"sharded; replicated parameters and BN running statistics bitwise "
+        f"equal in every model group {res['replicated_bitwise_equal']}; "
+        f"optimizer moments per rank "
+        f"{[b / 2**20 for b in res['moment_bytes_per_rank']]} MiB of "
+        f"{res['whole_moment_bytes'] / 2**20:.1f} MiB whole; B1 launches "
+        f"per rank {res['b1_launches_per_rank']}; {seconds:.1f} s")
+    if not res["replicated_bitwise_equal"]:
+        raise AssertionError("replicated parameters or BN running "
+                             "statistics differ inside a model group")
+    if worst["loss"] > PARALLEL_LOSS_REL or worst["loss2"] > \
+            PARALLEL_LOSS_REL or max(worst[k] for k in (
+                "grads", "params", "bn")) > PARALLEL_REL:
+        raise AssertionError(f"the {data} x {model} grid differs from one "
+                             f"process: {worst}")
+    if max(res["moment_bytes_per_rank"]) >= res["whole_moment_bytes"]:
+        raise AssertionError("the optimizer moments do not shard")
+    if res["b1_launches_per_rank"] != [2] * world:
+        raise AssertionError(f"B1 launches per rank "
+                             f"{res['b1_launches_per_rank']}")
+    return res, launches, ranks
+
+
+def grid_parity(build_dir):
+    """Phase 12(a) (module docstring). Returns its results and launches."""
+    import torch
 
     launches = {name: 0 for name, *_ in KERNELS}
     out = {}
@@ -3408,60 +3504,10 @@ def grid_parity(build_dir):
         del ref
         torch.cuda.empty_cache()
         for data, model in GRID_LAYOUTS:
-            world, backend = data * model, grid_world(data, model)
-            ckpt_path = os.path.join(root, f"grid_{data}x{model}.ckpt")
-            start = time.perf_counter()
-            ranks = run_local_ranks(grid_rank, world,
-                                    (model, ref_path, ckpt_path),
-                                    backend=backend, timeout_s=600)
-            seconds = time.perf_counter() - start
-            worst = {k: max(r["errs"][k] for r in ranks)
-                     for k in ranks[0]["errs"]}
-            groups = {}
-            for r in ranks:
-                groups.setdefault(r["data_rank"], set()).add(
-                    r["replicated_crc"])
-            res = {"backend": backend, "rel_err": worst,
-                   "replicated_bitwise_equal": all(
-                       len(c) == 1 for c in groups.values()),
-                   "moment_bytes_per_rank": [r["moment_bytes"]
-                                             for r in ranks],
-                   "whole_moment_bytes": ranks[0]["whole_moment_bytes"],
-                   "sharded_weights": ranks[0]["sharded"],
-                   "b1_launches_per_rank": [
-                       r["launches"]["apply_complex_mask_ri"]
-                       for r in ranks], "seconds": seconds}
+            res, counts, ranks = grid_layout(root, ref_path, data, model)
             out[f"{data}x{model}"] = res
             for name in launches:
-                launches[name] += sum(r["launches"][name] for r in ranks)
-            log(f"phase 12a: grid (data {data} x model {model}), {world} "
-                f"ranks over {backend} on {torch.cuda.device_count()} "
-                f"card(s), float32, TF32 off, the premixed step of "
-                f"{PARALLEL_SEP_BATCH} x 10 s against one process: rel err "
-                f"{worst}; {res['sharded_weights']} weights sharded; "
-                f"replicated parameters and BN running statistics bitwise "
-                f"equal in every model group "
-                f"{res['replicated_bitwise_equal']}; optimizer moments per "
-                f"rank {[b / 2**20 for b in res['moment_bytes_per_rank']]} "
-                f"MiB of {res['whole_moment_bytes'] / 2**20:.1f} MiB whole; "
-                f"B1 launches per rank {res['b1_launches_per_rank']}; "
-                f"{seconds:.1f} s")
-            if not res["replicated_bitwise_equal"]:
-                raise AssertionError("replicated parameters or BN running "
-                                     "statistics differ inside a model "
-                                     "group")
-            if worst["loss"] > PARALLEL_LOSS_REL or worst["loss2"] > \
-                    PARALLEL_LOSS_REL or max(
-                        worst[k] for k in ("grads", "params", "bn")) > \
-                    PARALLEL_REL:
-                raise AssertionError(f"the {data} x {model} grid differs "
-                                     f"from one process: {worst}")
-            if max(res["moment_bytes_per_rank"]) >= \
-                    res["whole_moment_bytes"]:
-                raise AssertionError("the optimizer moments do not shard")
-            if res["b1_launches_per_rank"] != [2] * world:
-                raise AssertionError(f"B1 launches per rank "
-                                     f"{res['b1_launches_per_rank']}")
+                launches[name] += counts[name]
         # the checkpoint written at the last layout, resumed in one process
         data, model = GRID_LAYOUTS[-1]
         ckpt = torch.load(os.path.join(root, f"grid_{data}x{model}.ckpt"),
@@ -3649,6 +3695,206 @@ def tensor_parallel(build_dir, across_cards=False):
     return results, launches
 
 
+def remat_parity(seed=40):
+    """Phase 13(a) (module docstring): the largest rel err of 'wide' and
+    'all' against 'none' for the loss and for each of the grads, updated
+    parameters and BN running statistics (per tensor), and whether each
+    BatchNorm counted one batch."""
+    import torch
+
+    from lass_torch.data.mixer import SegmentMixer
+    from lass_torch.models.resunet import ResUNet30
+    from lass_torch.tasks.audiosep import AudioSepTask
+    from lass_torch.train.optim import build_optimizer
+
+    def rel(got, ref):
+        got, ref = got.double(), ref.double()
+        return float((got - ref).norm() / ref.norm()) if ref.norm() > 0 \
+            else float(got.norm())
+
+    torch.manual_seed(0)
+    state = ResUNet30().state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data = {"waveform": 0.1 * torch.randn(REMAT_PARITY_BATCH, 1, 16000,
+                                          generator=gen, device="cuda"),
+            "condition": torch.randn(REMAT_PARITY_BATCH, 512, generator=gen,
+                                     device="cuda")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for mode in REMAT_MODES:
+            model = ResUNet30(remat=mode).cuda()
+            model.load_state_dict(state)
+            optimizer, scheduler = build_optimizer(
+                model.parameters(), "AdamW", 1e-3, "constant_warm_up", 10000,
+                1000000)
+            task = AudioSepTask(model, SegmentMixer(), optimizer, scheduler)
+            metrics = task.train_step(
+                data, torch.Generator(device="cuda").manual_seed(seed + 1))
+            runs[mode] = {
+                "loss": metrics["train_loss"].detach().reshape(1),
+                "grads": {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()},
+                "params": {n: p.detach().clone()
+                           for n, p in model.named_parameters()},
+                "bn": {n: b.clone() for n, b in model.named_buffers()
+                       if "running_" in n},
+                "tracked": sorted({int(b) for n, b in model.named_buffers()
+                                   if n.endswith("num_batches_tracked")})}
+            del model, optimizer, scheduler, task
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    ref = runs["none"]
+    out = {}
+    for mode in REMAT_MODES[1:]:
+        got = runs[mode]
+        out[mode] = {"loss": rel(got["loss"], ref["loss"]),
+                     **{k: max(rel(got[k][n], ref[k][n]) for n in ref[k])
+                        for k in ("grads", "params", "bn")},
+                     "num_batches_tracked": got["tracked"]}
+    if ref["tracked"] != [1]:
+        raise AssertionError(f"'none' counted {ref['tracked']} batches")
+    log(f"phase 13a: one float32 train step, {REMAT_PARITY_BATCH} x 1 s, "
+        f"TF32 off, deterministic cuDNN, against remat 'none': largest rel "
+        f"err per tensor {out} (limit {REMAT_REL}; num_batches_tracked "
+        f"[1])")
+    for mode, errs in out.items():
+        if errs["num_batches_tracked"] != [1] or max(
+                errs[k] for k in ("loss", "grads", "params", "bn")) > \
+                REMAT_REL:
+            raise AssertionError(f"remat {mode} left 'none': {errs}")
+    return out
+
+
+def remat_fit(peaks):
+    """Fixed and per-clip bytes through the two (batch, peak bytes) of
+    REMAT_FIT_BATCHES, and the largest batch whose fitted peak is within
+    REMAT_MEMORY_SHARE of the card's memory."""
+    import torch
+
+    (b0, p0), (b1, p1) = peaks
+    per_clip = (p1 - p0) / (b1 - b0)
+    fixed = p0 - b0 * per_clip
+    budget = REMAT_MEMORY_SHARE * torch.cuda.get_device_properties(
+        0).total_memory
+    return {"fixed_gib": fixed / 2 ** 30, "per_clip_gib": per_clip / 2 ** 30,
+            "budget_gib": budget / 2 ** 30,
+            "max_batch": int((budget - fixed) // per_clip)}
+
+
+def remat_cost(build_dir):
+    """Phase 13(b) (module docstring). Returns its results and the CLI's
+    launches."""
+    import math
+
+    import torch
+
+    from lass_torch.data.synth import make_synth_corpus, write_train_config
+    from lass_torch.models.resunet import ResUNet30
+
+    torch.manual_seed(0)
+    state = ResUNet30().state_dict()
+    modes = {}
+    for mode in REMAT_MODES:
+        step = time_train_steps(state, REMAT_FIT_BATCHES[0], remat=mode)
+        again = time_train_steps(state, REMAT_FIT_BATCHES[1], steps=1,
+                                 warmup=1, remat=mode)
+        fit = remat_fit([(REMAT_FIT_BATCHES[0], step["peak_gib"] * 2 ** 30),
+                         (REMAT_FIT_BATCHES[1],
+                          again["peak_gib"] * 2 ** 30)])
+        modes[mode] = {**step, "peak_gib_b2": again["peak_gib"],
+                       "step_ms_b2": again["step_ms"], **fit}
+        log(f"phase 13b: remat {mode}, bf16 train step "
+            f"{REMAT_FIT_BATCHES[0]} x 10 s: {step['step_ms']:.1f} ms, "
+            f"{step['steps_per_s']:.3f} steps/s, peak {step['peak_gib']:.2f} "
+            f"GiB; at {REMAT_FIT_BATCHES[1]} x 10 s peak "
+            f"{again['peak_gib']:.2f} GiB ({again['step_ms']:.1f} ms, one "
+            f"step); fit {fit['fixed_gib']:.2f} GiB + "
+            f"{fit['per_clip_gib']:.4f} GiB a clip: largest batch "
+            f"{fit['max_batch']} within {fit['budget_gib']:.2f} GiB "
+            f"({REMAT_MEMORY_SHARE} of the card)")
+        torch.cuda.empty_cache()
+    holds = [m for m in REMAT_MODES
+             if modes[m]["max_batch"] >= REMAT_CLI_ROWS]
+    mode = holds[0] if holds else "all"
+    rows = REMAT_CLI_ROWS if holds else modes["all"]["max_batch"]
+    if not holds:
+        log(f"phase 13b: no mode holds the shipped {REMAT_CLI_ROWS} rows a "
+            f"card by the fit; the CLI runs 'all' at its largest fitted "
+            f"batch, {rows} rows")
+    datafile = make_synth_corpus(os.path.join(build_dir, "remat_corpus"),
+                                 num_clips=rows + 8, seconds_min=10.0,
+                                 seconds_max=12.0, seed=13)
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        config = write_train_config(
+            os.path.join(root, "config.yaml"), datafile, batch_size=rows,
+            segment_seconds=10, num_workers=8, save_step_frequency=100000,
+            compute_dtype="bfloat16")
+        metrics, ckpts, counts, _, seconds = run_train_cli(
+            os.path.join(root, "run"), config, "",
+            os.path.join(root, "counts.json"), max_steps=REMAT_CLI_STEPS,
+            env={"LASS_TPU_REMAT": mode})
+    losses = [metrics[k]["train_loss"] for k in sorted(metrics)]
+    sps = [metrics[k]["steps_per_sec"] for k in sorted(metrics)]
+    cli = {"remat": mode, "rows": rows, "losses": losses,
+           "steps_per_s": sps, "clips_per_s": [rows * x for x in sps],
+           "logged_remat": metrics.get(1, {}).get("remat"),
+           "checkpoints": ckpts, "launches": counts, "seconds": seconds}
+    log(f"phase 13b: python -m lass_torch.train, LASS_TPU_REMAT={mode}, "
+        f"{rows} rows x 10 s a step, bf16, {REMAT_CLI_STEPS} steps: losses "
+        f"{losses}, steps/s by step {sps} ({cli['clips_per_s'][-1]:.1f} "
+        f"clips/s at the last), remat in its first record "
+        f"{cli['logged_remat']!r}, launches {counts}, {seconds:.1f} s")
+    expect = {name: 0 for name, *_ in KERNELS}
+    expect["apply_complex_mask_ri"] = REMAT_CLI_STEPS
+    if sorted(metrics) != list(range(1, REMAT_CLI_STEPS + 1)) or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the remat CLI's metrics: {metrics}")
+    if cli["logged_remat"] != mode:
+        raise AssertionError(f"the CLI trained with remat "
+                             f"{cli['logged_remat']!r}, not {mode!r}")
+    if counts != expect:
+        raise AssertionError(f"the remat CLI launched {counts}")
+    return {"modes": modes, "cli": cli}, counts
+
+
+def remat_phase(build_dir):
+    """Phase 13 (module docstring). Returns (results, launches)."""
+    import torch
+
+    start = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - start - sum(seconds.values())
+
+    reset_kernel_counts()
+    parity = remat_parity()
+    lap("parity")
+    cost, cli_counts = remat_cost(build_dir)
+    lap("cost")
+    with tempfile.TemporaryDirectory(dir=build_dir) as root:
+        ref_path = os.path.join(root, "reference.pt")
+        ref, _ = grid_reference(torch.device("cuda"))
+        torch.save(ref, ref_path)
+        del ref
+        torch.cuda.empty_cache()
+        launches = kernel_counts()  # parity, the timed steps, the reference
+        data, model = GRID_LAYOUTS[-1]
+        grid, grid_counts, _ = grid_layout(root, ref_path, data, model,
+                                           remat="all")
+    lap("grid")
+    for name in launches:
+        launches[name] += cli_counts[name] + grid_counts[name]
+    results = {"parity": parity, **cost, "grid_all": grid,
+               "phase_s": time.perf_counter() - start, "seconds": seconds}
+    log(f"phase 13: {results['phase_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    return results, launches
+
+
 def main():
     import argparse
 
@@ -3656,7 +3902,8 @@ def main():
 
     parser = argparse.ArgumentParser(description="Drive and check the "
                                      "PyTorch port on the card(s).")
-    parser.add_argument("--phase", type=int, choices=[11, 12], default=None,
+    parser.add_argument("--phase", type=int, choices=[11, 12, 13],
+                        default=None,
                         help="run phases 1, 2 and this one only")
     parser.add_argument("--across_cards", action="store_true",
                         help="with --phase 12: its parts that span cards "
@@ -3695,6 +3942,10 @@ def main():
         RESULTS["tensor_parallel"], RESULTS["launches_phase12"] = \
             tensor_parallel(build_dir, args.across_cards)
         return finish(torch, details="chip_smoke_phase12.json")
+    if args.phase == 13:
+        RESULTS["remat"], RESULTS["launches_phase13"] = remat_phase(
+            build_dir)
+        return finish(torch, details="chip_smoke_phase13.json")
 
     # 3. kernels vs plain; B2 has no caller in either package, so this
     # phase is its path: its launches are counted here
@@ -3791,7 +4042,7 @@ def main():
         f"{timetap['bound_ms']:.3f} ms ({timetap['bound_by']}); "
         f"{timetap['launches']} launches")
     torch.cuda.empty_cache()
-    train_time = time_train_steps(sep, TRAIN_BATCH)
+    train_time = time_train_steps(sep.model.state_dict(), TRAIN_BATCH)
     log(f"train step bf16, {TRAIN_BATCH} x 10 s: {train_time['step_ms']:.1f}"
         f" ms, {train_time['steps_per_s']:.2f} steps/s, "
         f"{train_time['clips_per_s']:.1f} clips/s, peak memory "
@@ -3846,6 +4097,12 @@ def main():
     for name, n in tp_launches.items():
         launches[name] += n
     RESULTS.update(tensor_parallel=tp, launches_phase12=tp_launches)
+
+    # 13. training rematerialization: parity, cost, the shipped batch, grid
+    remat, remat_launches = remat_phase(build_dir)
+    for name, n in remat_launches.items():
+        launches[name] += n
+    RESULTS.update(remat=remat, launches_phase13=remat_launches)
 
     kernels = []
     for name, _, _, source, replaces in KERNELS:

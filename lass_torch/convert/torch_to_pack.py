@@ -220,13 +220,14 @@ def convert_hf_bert_state(sd: StateDict, num_layers: int) -> Dict[str, Any]:
 def convert_hf_bart_encoder_state(sd: StateDict, num_layers: int = 6
                                   ) -> Dict[str, Any]:
     """HF BartModel state dict (encoder side) -> BartEncoderModel params
-    in the pack layout, fused QKV (open_clip/model.py:533 'bart' branch)."""
+    in the pack layout, fused QKV (open_clip/model.py:533 'bart' branch).
+    A state dict with neither ``shared.weight`` nor
+    ``encoder.embed_tokens.weight`` packs None for the token table, as
+    lass_tpu's converter does."""
     sd = to_numpy_state_dict(sd)
     if any(k.startswith("model.") for k in sd):
         sd = strip_prefix(sd, "model.")
     tok = sd.get("shared.weight", sd.get("encoder.embed_tokens.weight"))
-    if tok is None:
-        raise KeyError("shared.weight or encoder.embed_tokens.weight")
     params: Dict[str, Any] = {
         "embed_tokens": {"embedding": tok},
         "embed_positions": {

@@ -5,7 +5,8 @@ SI-SDR.
     python -m lass_torch.dcase_evaluator --checkpoint_path CKPT \\
         --eval_indexes lass_synthetic_validation.csv \\
         --audio_dir lass_validation [--config_yaml config/audiosep_base.yaml]
-        [--batch_size 16] [--quantize] [--config {default,A,B}] [--device cuda]
+        [--batch_size 16] [--quantize] [--config {default,A,B}]
+        [--dsp_precision {default,high,highest}] [--device cuda]
     python -m torch.distributed.run --nproc_per_node N \
         -m lass_torch.dcase_evaluator --data_parallel ...
 
@@ -23,9 +24,11 @@ import argparse
 def evaluate(evaluator, checkpoint_path: str,
              config_yaml: str = "config/audiosep_base.yaml",
              query_encoder=None, quantize: bool = False,
-             config: str = "default", device: str = "cuda"):
+             config: str = "default", device: str = "cuda",
+             dsp_precision=None):
     """Load the separator, calibrate it if ``quantize``, run the evaluator;
-    returns (SI-SDR, SDRi, SDR)."""
+    returns (SI-SDR, SDRi, SDR). ``dsp_precision`` overrides the config's
+    ``model.dsp_precision`` where given."""
     from lass_torch.config import load_config
     from lass_torch.convert.checkpoint_io import load_ss_model
     from lass_torch.parallel.host import host_info
@@ -34,6 +37,8 @@ def evaluate(evaluator, checkpoint_path: str,
         raise NotImplementedError("--quantize with --data_parallel (nor in "
                                   "the root CLI)")
     cfg = load_config(config_yaml)
+    if dsp_precision:
+        cfg.model.dsp_precision = dsp_precision
     pl_model = load_ss_model(cfg, checkpoint_path, query_encoder, device,
                              quantize=quantize, config=config)
     if quantize:
@@ -65,6 +70,11 @@ def main(argv=None):
                         help="serving configuration (A and B run the fused "
                              "conv kernels; on the card they need "
                              "compute_dtype bfloat16)")
+    parser.add_argument("--dsp_precision", default=None,
+                        choices=["default", "high", "highest"],
+                        help="accepted for parity with dcase_evaluator.py "
+                             "(overrides config); the port's DSP always "
+                             "runs in full float32")
     parser.add_argument("--data_parallel", action="store_true",
                         help="one process per card under python -m "
                              "torch.distributed.run, each separating its "
@@ -84,7 +94,7 @@ def main(argv=None):
                                data_parallel=args.data_parallel)
     return evaluate(evaluator, args.checkpoint_path, args.config_yaml,
                     quantize=args.quantize, config=args.config,
-                    device=str(device))
+                    device=str(device), dsp_precision=args.dsp_precision)
 
 
 if __name__ == "__main__":

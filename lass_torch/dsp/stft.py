@@ -170,6 +170,20 @@ def wav_to_spectrogram_complex(x: torch.Tensor,
     return real.permute(0, 2, 3, 1), imag.permute(0, 2, 3, 1)
 
 
+def spectrogram_to_wav(x: torch.Tensor, spectrogram: torch.Tensor,
+                       length: int, cfg: STFTConfig = STFTConfig()
+                       ) -> torch.Tensor:
+    """Waveforms from a (possibly modified) magnitude spectrogram with the
+    phase of ``x`` (lass_tpu's ``spectrogram_to_wav``, reference
+    base.py:133-152, over every channel at once). x: (B, C, L);
+    spectrogram: (B, T, F, C), the layout of
+    ``wav_to_spectrogram_complex`` -> (B, C, length), float32."""
+    real, imag = stft(x, cfg)  # (B, C, T, F)
+    _, cos, sin = magphase(real, imag)
+    mag = spectrogram.float().permute(0, 3, 1, 2)  # (B, C, T, F)
+    return istft(mag * cos, mag * sin, length, cfg)
+
+
 def spectrogram_phase(real: torch.Tensor, imag: torch.Tensor,
                       eps: float = 1e-10
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -29,20 +29,35 @@ state dicts unchanged), and so with ``quantize``.
 forward (``SeparationInference.calibrate``). Blocks that a fused kernel
 takes stay on it in bf16, as in the JAX package. The state dict is
 unchanged.
+
+``remat`` is the JAX package's training rematerialization of the residual
+blocks (``ResUNet30.remat``, the environment's ``LASS_TPU_REMAT`` when
+None; default 'none'): 'wide' recomputes the two widest levels' blocks
+(encoder_block1/2, decoder_block5/6) during the backward pass instead of
+keeping their activations, 'all' every encoder and decoder block and
+conv_block7a. It trades a second forward of those blocks for the memory
+of their activations; the step's result is the same (BatchNorm's running
+statistics are updated once, ``lass_torch.nn.layers.recomputing``). It
+acts only in a train-mode forward with grad enabled: an eval forward,
+under ``no_grad`` or in inference mode runs as with 'none', and the state
+dict is the same in every mode.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+import os
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from lass_torch.dsp.stft import STFTConfig, istft, stft
 from lass_torch.models.film import FusedFiLM, resunet30_film_spec
 from lass_torch.nn.blocks import DecoderBlockRes1B, EncoderBlockRes1B
 from lass_torch.nn.fused import FusedDecoderBlockRes1B, FusedEncoderBlockRes1B
-from lass_torch.nn.layers import BatchNorm, Conv2d
+from lass_torch.nn.layers import BatchNorm, Conv2d, recomputing
 from lass_torch.ops.masking import apply_complex_mask_ri, apply_head_mask
 
 TIME_DOWNSAMPLE_RATIO = 32  # 2 ** (number of time-downsampling encoder blocks)
@@ -61,6 +76,35 @@ CONFIGS = {
 # the two widest levels, where the JAX package runs its fused-conv kernels
 _WIDE = ("encoder_block1", "encoder_block2", "decoder_block5",
          "decoder_block6")
+_BLOCKS = (*(f"encoder_block{i}" for i in range(1, 7)), "conv_block7a",
+           *(f"decoder_block{i}" for i in range(1, 7)))
+# the blocks each training-remat mode recomputes (lass_tpu's wide_r /
+# all_r; 'all' implies 'wide')
+REMAT_BLOCKS = {"none": (), "wide": _WIDE, "all": _BLOCKS}
+
+
+def remat_mode(remat: Optional[str] = None) -> str:
+    """``remat``, or the environment's ``LASS_TPU_REMAT`` when None
+    (default 'none'); anything but none/wide/all raises."""
+    mode = remat if remat is not None else os.environ.get(
+        "LASS_TPU_REMAT", "none")
+    if mode not in REMAT_BLOCKS:
+        raise ValueError(f"remat must be none/wide/all, got {mode!r}")
+    return mode
+
+
+def _remat_contexts():
+    """``checkpoint``'s context_fn: the first pass runs as usual, the
+    recompute updates no BatchNorm statistics."""
+    return contextlib.nullcontext(), recomputing()
+
+
+def remat_call(block: nn.Module, *args):
+    """``block(*args)`` with its activations recomputed in the backward
+    pass instead of kept (a non-reentrant checkpoint; no block draws random
+    numbers, so no RNG state is replayed)."""
+    return checkpoint(block, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=_remat_contexts)
 
 
 class ResUNet30Base(nn.Module):
@@ -69,14 +113,16 @@ class ResUNet30Base(nn.Module):
     kernel takes with after_conv's parameters. Holds ``bn0`` too, where the
     reference keeps it (``base.bn0``). The fused switches (module
     docstring) route the wide levels through the fused blocks of
-    ``nn/fused.py``."""
+    ``nn/fused.py``; ``remat`` (module docstring) picks the blocks a
+    training forward recomputes."""
 
     def __init__(self, input_channels: int = 1, output_channels: int = 1,
                  K: int = 3, freq_bins: int = 513, momentum: float = 0.01,
                  sparse_conv: bool = False, fused_conv_block: bool = False,
                  fused_convT: bool = False, fuse_head: bool = False,
-                 quantize: bool = False):
+                 quantize: bool = False, remat: Optional[str] = None):
         super().__init__()
+        self.remat = remat_mode(remat)
         fused = sparse_conv or fused_conv_block or fused_convT
         # the fused head takes one input channel (lass_tpu's rule)
         self.fuse_head = fuse_head and input_channels == 1 and K == 3
@@ -122,23 +168,33 @@ class ResUNet30Base(nn.Module):
             self.add_module(name, block)
         self.after_conv = Conv2d(32, output_channels * K, (1, 1))
 
+    def _block(self, name: str, *args):
+        """Block ``name`` on ``args`` and its FiLM betas; recomputed in the
+        backward pass where the remat mode names it and the forward trains
+        with grad enabled."""
+        block = getattr(self, name)
+        if name in REMAT_BLOCKS[self.remat] and self.training and \
+                torch.is_grad_enabled():
+            return remat_call(block, *args)
+        return block(*args)
+
     def forward(self, x: torch.Tensor, film: Dict[str, Any]) -> torch.Tensor:
         x = self.pre_conv(x)
         if self.channels_last:
             x = x.contiguous(memory_format=torch.channels_last)
-        x1p, x1 = self.encoder_block1(x, film["encoder_block1"])
-        x2p, x2 = self.encoder_block2(x1p, film["encoder_block2"])
-        x3p, x3 = self.encoder_block3(x2p, film["encoder_block3"])
-        x4p, x4 = self.encoder_block4(x3p, film["encoder_block4"])
-        x5p, x5 = self.encoder_block5(x4p, film["encoder_block5"])
-        x6p, x6 = self.encoder_block6(x5p, film["encoder_block6"])
-        xc, _ = self.conv_block7a(x6p, film["conv_block7a"])
-        h = self.decoder_block1(xc, x6, film["decoder_block1"])
-        h = self.decoder_block2(h, x5, film["decoder_block2"])
-        h = self.decoder_block3(h, x4, film["decoder_block3"])
-        h = self.decoder_block4(h, x3, film["decoder_block4"])
-        h = self.decoder_block5(h, x2, film["decoder_block5"])
-        h = self.decoder_block6(h, x1, film["decoder_block6"])
+        x1p, x1 = self._block("encoder_block1", x, film["encoder_block1"])
+        x2p, x2 = self._block("encoder_block2", x1p, film["encoder_block2"])
+        x3p, x3 = self._block("encoder_block3", x2p, film["encoder_block3"])
+        x4p, x4 = self._block("encoder_block4", x3p, film["encoder_block4"])
+        x5p, x5 = self._block("encoder_block5", x4p, film["encoder_block5"])
+        x6p, x6 = self._block("encoder_block6", x5p, film["encoder_block6"])
+        xc, _ = self._block("conv_block7a", x6p, film["conv_block7a"])
+        h = self._block("decoder_block1", xc, x6, film["decoder_block1"])
+        h = self._block("decoder_block2", h, x5, film["decoder_block2"])
+        h = self._block("decoder_block3", h, x4, film["decoder_block3"])
+        h = self._block("decoder_block4", h, x3, film["decoder_block4"])
+        h = self._block("decoder_block5", h, x2, film["decoder_block5"])
+        h = self._block("decoder_block6", h, x1, film["decoder_block6"])
         return h if self.fuse_head else self.after_conv(h)
 
 
@@ -211,7 +267,8 @@ class ResUNet30(nn.Module):
 
     State-dict keys are the reference torch names under ``base.``, except
     that FiLM is one fused Linear (``film.weight``, ``film.bias``). The
-    fused switches (module docstring) leave the state dict as it is."""
+    fused switches and ``remat`` (module docstring) leave the state dict
+    as it is."""
 
     def __init__(self, input_channels: int = 1, output_channels: int = 1,
                  condition_size: int = 512, K: int = 3,
@@ -219,7 +276,7 @@ class ResUNet30(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  sparse_conv: bool = False, fused_conv_block: bool = False,
                  fused_convT: bool = False, fuse_head: bool = False,
-                 quantize: bool = False):
+                 quantize: bool = False, remat: Optional[str] = None):
         super().__init__()
         self.output_channels = output_channels
         self.K = K
@@ -229,7 +286,13 @@ class ResUNet30(nn.Module):
         self.base = ResUNet30Base(
             input_channels, output_channels, K, self.stft_cfg.freq_bins,
             sparse_conv=sparse_conv, fused_conv_block=fused_conv_block,
-            fused_convT=fused_convT, fuse_head=fuse_head, quantize=quantize)
+            fused_convT=fused_convT, fuse_head=fuse_head, quantize=quantize,
+            remat=remat)
+
+    @property
+    def remat(self) -> str:
+        """The training-remat mode this model was built with."""
+        return self.base.remat
 
     def forward(self, input_dict: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -262,8 +325,8 @@ class ResUNet30(nn.Module):
 
 def build_model(cfg, **switches) -> ResUNet30:
     """ResUNet30 from a Config (``lass_torch.config``); ``switches`` are
-    ResUNet30's keywords: the fused-conv ones (``CONFIGS``) and
-    ``quantize``."""
+    ResUNet30's keywords: the fused-conv ones (``CONFIGS``), ``quantize``
+    and ``remat`` (by default the environment's ``LASS_TPU_REMAT``)."""
     if cfg.model.model_type != "ResUNet30":
         raise NotImplementedError(cfg.model.model_type)
     if cfg.model.compute_dtype not in _DTYPES:

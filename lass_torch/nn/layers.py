@@ -14,10 +14,19 @@ every rank updates its running statistics identically. Under a (data x
 model) grid the ranks are the grid's data group (``process_group``).
 ``dropout`` draws its mask from an explicit generator, at the global
 batch's shape in a process group (each rank keeps its rows).
+
+Under training rematerialization (``lass_torch.models.resunet``'s
+``remat``) a block's forward runs again during the backward pass, inside
+``recomputing()``: train-mode BatchNorm then normalises with the batch's
+statistics as the first pass did and leaves its running statistics and
+``num_batches_tracked`` alone, so they are updated once a step, as under
+flax's lifted ``nn.remat``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -25,6 +34,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lass_torch.parallel.host import gather_rows, group_info, row_span
+
+
+class _Recompute(threading.local):
+    active = False
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Marks a checkpoint's recompute on this thread (the autograd engine's
+    thread that runs it): train-mode ``BatchNorm`` updates nothing."""
+    before = _RECOMPUTE.active
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
 
 
 def _sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
@@ -109,6 +137,8 @@ class BatchNorm(nn.BatchNorm2d):
     def _global_forward(self, h: torch.Tensor) -> torch.Tensor:
         y, mean, var, n = GlobalBatchNorm.apply(h, self.weight, self.bias,
                                                 self.eps, self.process_group)
+        if _RECOMPUTE.active:
+            return y
         with torch.no_grad():
             m = self.momentum
             self.num_batches_tracked.add_(1)
@@ -116,12 +146,22 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1 - m).add_(var * (n / (n - 1)), alpha=m)
         return y
 
+    def _local_forward(self, h: torch.Tensor) -> torch.Tensor:
+        if not _RECOMPUTE.active:
+            return super().forward(h)
+        # the first pass's kernel on copies of the running statistics, so
+        # the recompute repeats its output bitwise; the copies' update is
+        # dropped
+        return F.batch_norm(h, self.running_mean.clone(),
+                            self.running_var.clone(), self.weight, self.bias,
+                            True, self.momentum, self.eps)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             h = x.float().movedim(self.dim, 1)
             y = (self._global_forward(h)
                  if group_info(self.process_group)[1] > 1
-                 else super().forward(h))
+                 else self._local_forward(h))
             return y.movedim(1, self.dim).to(x.dtype)
         inv, shift = self.scale_shift()
         shape = [1] * x.dim()

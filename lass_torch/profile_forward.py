@@ -13,7 +13,8 @@ products, FFTs, overlap-add, elementwise, other), the top kernels, and the
 device's busy share of the profiled window, with the card's name and
 power limit. ``--train`` profiles the bf16 train step instead
 (``AudioSepTask.train_step``: mix, forward in train mode, backward, AMSGrad;
-the default configuration, as the fused switches are eval-only), per step.
+the default configuration, as the fused switches are eval-only), per step,
+in the training-remat mode of ``LASS_TPU_REMAT``.
 ``--clap`` profiles the float32 CLAP contrastive step instead (the audio
 tower it names + RoBERTa-base, random weights, TF32 off; ``--batch`` clips
 of ``--seconds`` at 48 kHz, 32 by default, captions of 77 tokens; the

@@ -4,7 +4,8 @@ on several with one process per card.
 Workspace layout (``get_dirs``), datafile dataset and batch loader, the
 separator, mixer, loss, AMSGrad optimizer and LR schedule, the frozen CLAP
 query encoder, checkpoints at step 1 and every ``save_step_frequency``
-steps, metrics to ``metrics.jsonl`` and resume.
+steps, metrics to ``metrics.jsonl`` (the first record of a ``fit`` also
+names the model's training-remat mode, ``LASS_TPU_REMAT``) and resume.
 
 A host thread (``datamodule.BatchLoader``) decodes and crops batches a few
 ahead; a second one (``prefetch.DevicePrefetcher``, on its own stream on a
@@ -157,6 +158,10 @@ class Trainer:
 
         torch.manual_seed(cfg.train.random_seed)
         model = build_model(cfg).to(self.device)
+        # the training-remat mode (LASS_TPU_REMAT; a model without the
+        # switch recomputes nothing), logged with the first record
+        self.remat = getattr(model, "remat", "none")
+        logging.info("remat: %s", self.remat)
         self.grid = make_grid(model_parallel)
         shard_model(model, self.grid)
         opt = cfg.train.optimizer
@@ -252,6 +257,7 @@ class Trainer:
         step = self.task.step
         sharded = self.grid.model_size > 1
         t_last, steps_since = pc(), 0
+        first_record = {"remat": self.remat}
         loader = self.datamodule.train_dataloader(skip_batches=step)
         prefetch = None
         try:
@@ -285,7 +291,9 @@ class Trainer:
                                  loss, sps)
                     self.metrics.log(step, {"train_loss": loss,
                                             "grad_norm": gnorm,
-                                            "steps_per_sec": sps})
+                                            "steps_per_sec": sps,
+                                            **first_record})
+                    first_record = {}
                 if step_hook is not None:
                     step_hook(step)
                 # under a grid the model's forward gathers over the model

@@ -42,7 +42,8 @@ def create_logging(log_dir: str, filemode: str = "w",
 
 class MetricsLogger:
     """Step metrics -> ``<log_dir>/metrics.jsonl``, one JSON object a line
-    (nothing at all when not ``enabled``)."""
+    (nothing at all when not ``enabled``): numbers as floats, strings as
+    they are."""
 
     def __init__(self, log_dir: str, enabled: bool = True):
         os.makedirs(log_dir, exist_ok=True)
@@ -53,7 +54,8 @@ class MetricsLogger:
         if self._fh is None:
             return
         record = {"step": int(step), "time": time.time(),
-                  **{k: float(v) for k, v in metrics.items()}}
+                  **{k: v if isinstance(v, str) else float(v)
+                     for k, v in metrics.items()}}
         self._fh.write(json.dumps(record) + "\n")
         self._fh.flush()
 

@@ -341,7 +341,9 @@ def test_hybrid_trainer_resumes_exactly(hybrid_runs):
 @pytest.fixture(scope="module")
 def eval_run(tmp_path_factory):
     """One text-conditioned step with the DCASE eval hook at step 1 (one
-    synthetic row, batch 2)."""
+    synthetic row, batch 1: the hook pads each row to 10 s, and a ragged
+    batch to the batch size, so every extra row of the batch costs a
+    10 s forward on the CPU)."""
     root = tmp_path_factory.mktemp("eval")
     datafile = make_synth_corpus(str(root / "synth"), num_clips=3,
                                  seconds_min=0.6, seconds_max=0.8, seed=2)
@@ -354,7 +356,7 @@ def eval_run(tmp_path_factory):
     trainer = loop.Trainer(config, str(root / "ws"), device="cpu",
                            query_encoder=port_encoder(), log_every=1)
     trainer.fit(max_steps=1, eval_hook=loop.make_dcase_eval_hook(
-        eval_csv, str(root / "eval"), batch_size=2))
+        eval_csv, str(root / "eval"), batch_size=1))
     return root, config, eval_csv, trainer
 
 

@@ -137,12 +137,21 @@ def test_missing_keys_raise(rng):
     for package in (conv, jax_conv):
         with pytest.raises(KeyError):
             package.convert_clap_text_encoder(sd, 2, model_type="bert")
-    bart = {k: v for k, v in hf_branch("bart").state_dict().items()
-            if k not in ("shared.weight", "encoder.embed_tokens.weight")}
-    with pytest.raises(KeyError):
-        conv.convert_hf_bart_encoder_state(bart, 2)
     with pytest.raises(NotImplementedError):
         conv.convert_clap_text_encoder(sd, 2, model_type="transformer")
+
+
+def test_bart_pack_without_token_table_matches_jax():
+    """Neither shared.weight nor encoder.embed_tokens.weight: both
+    converters pack None for the token table and the rest alike."""
+    bart = {k: v for k, v in hf_branch("bart").state_dict().items()
+            if k not in ("shared.weight", "encoder.embed_tokens.weight")}
+    got = conv.convert_hf_bart_encoder_state(bart, 2)
+    want = jax_conv.convert_hf_bart_encoder_state(bart, 2)
+    assert got["embed_tokens"]["embedding"] is None
+    assert want["embed_tokens"]["embedding"] is None
+    del got["embed_tokens"], want["embed_tokens"]
+    assert_same_tree(got, want)
 
 
 def _htsat_cfg(fusion_type):

@@ -8,6 +8,7 @@ Tolerances: SI-SDR, SDRi and SDR within 1e-3 dB of the JAX evaluator's
 2e-5); int8 (calibrate, then pack) within 0.1 dB of float on every
 metric, the JAX package's own gate (tests/test_dcase.py)."""
 import csv
+import types
 import zlib
 
 import jax
@@ -142,10 +143,42 @@ def _small_query_encoder(device="cpu", **kwargs):
         tokenizer=WhitespaceFallbackTokenizer(1000))
 
 
+def test_evaluator_cli_takes_dsp_precision(tmp_path, monkeypatch):
+    """The root CLI's --dsp_precision (its choices), set on the config the
+    separator is built from; parser and config only, no model run."""
+    from lass_torch.convert import checkpoint_io
+    from lass_torch.evaluation import dcase
+
+    class Stop(Exception):
+        pass
+
+    def load_ss_model(cfg, *args, **kwargs):
+        raise Stop(cfg.model.dsp_precision)
+
+    monkeypatch.setattr(checkpoint_io, "load_ss_model", load_ss_model)
+    monkeypatch.setattr(dcase, "DCASEEvaluator",
+                        lambda **kwargs: types.SimpleNamespace(
+                            data_parallel=False))
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("task_name: AudioSep\n")
+    argv = ["--checkpoint_path", "x.ckpt", "--config_yaml", str(cfg),
+            "--device", "cpu"]
+    for value in ("default", "high", "highest"):
+        with pytest.raises(Stop, match=f"^{value}$"):
+            dcase_evaluator.main(argv + ["--dsp_precision", value])
+    with pytest.raises(Stop, match="^high$"):  # the config's default
+        dcase_evaluator.main(argv)
+    with pytest.raises(SystemExit):
+        dcase_evaluator.main(argv + ["--dsp_precision", "low"])
+
+
 def test_clis_on_cpu(eval_set, tmp_path, monkeypatch, capsys):
     """python -m lass_torch.dcase_evaluator and python -m
     lass_torch.separate --chunked --quantize --config A, in-process, with a
-    small caption encoder in place of the full-width one."""
+    small caption encoder in place of the full-width one. The evaluator
+    scores the set's first row at batch 1: the CLI pads every clip to 10 s,
+    so each row costs a 10 s forward on the CPU (the batching and the
+    ragged last batch: test_evaluator_matches_jax)."""
     monkeypatch.setattr(query_encoder, "CLAPQueryEncoder",
                         _small_query_encoder)
     ckpt = str(tmp_path / "sep.ckpt")
@@ -155,10 +188,13 @@ def test_clis_on_cpu(eval_set, tmp_path, monkeypatch, capsys):
                    "    segment_seconds: 1\nmodel:\n    compute_dtype: "
                    "float32\n")
     csv_path, audio_dir = eval_set
+    one_row = tmp_path / "one_row.csv"
+    with open(csv_path) as f:
+        one_row.write_text("".join(f.readlines()[:2]))
     sisdr, sdri, sdr = dcase_evaluator.main([
         "--checkpoint_path", ckpt, "--config_yaml", str(cfg),
-        "--eval_indexes", csv_path, "--audio_dir", audio_dir,
-        "--batch_size", "3", "--device", "cpu"])
+        "--eval_indexes", str(one_row), "--audio_dir", audio_dir,
+        "--batch_size", "1", "--device", "cpu"])
     assert np.isfinite([sisdr, sdri, sdr]).all()
     assert "SDR: " in capsys.readouterr().out
 

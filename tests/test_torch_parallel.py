@@ -532,6 +532,14 @@ def test_two_rank_resume_repeats_the_uninterrupted_steps(ranks):
     assert all(np.isfinite(list(runs["first"].values())))
 
 
+def test_grid_trainer_takes_the_remat_mode_from_the_environment(ranks):
+    """The (1 x 2) grid's full-width trainer ran with LASS_TPU_REMAT=all:
+    its model took the mode and its first metrics record names it. Its
+    checkpoint resumes in one process, under 'none', within LOSS_REL
+    (test_grid_trainer_checkpoint_resumes_and_serves_in_one_process)."""
+    assert ranks["out"][0]["trainer"]["grid_remat"] == ("all", "all")
+
+
 def test_grid_trainer_checkpoint_resumes_and_serves_in_one_process(
         ranks, tmp_path):
     runs = ranks["out"][0]["trainer"]

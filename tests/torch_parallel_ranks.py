@@ -9,6 +9,8 @@ tests/test_torch_train_step.py (``TorchSmallSep``), repeated here because
 that module imports JAX (the test holds the two to one state dict and one
 output).
 """
+import json
+import os
 import sys
 import zlib
 
@@ -279,9 +281,6 @@ def _grid_step(rank, world, inp):
 
 def _losses(trainer):
     """{step: train_loss} of a trainer's metrics.jsonl (rank 0's)."""
-    import json
-    import os
-
     path = os.path.join(trainer.tf_logs_dir, "metrics.jsonl")
     if not os.path.exists(path):
         return {}
@@ -293,11 +292,12 @@ def _trainer_runs(rank, world, inp):
     """The trainer at ``world`` ranks, one row each. Data parallel, with
     SmallSep for the model (a 512-wide condition): 4 steps (checkpoints
     1, 2, 4), then its step-2 checkpoint resumed to step 4. Then the
-    full-width ResUNet30 on a (1 x world) grid for 2 steps (its step-1
-    checkpoint written from the grid). Then hybrid conditioning on a (1 x
+    full-width ResUNet30 on a (1 x world) grid for 2 steps under
+    LASS_TPU_REMAT=all (its step-1 checkpoint written from the grid). Then hybrid conditioning on a (1 x
     world) grid, SmallSep sharded at TP_SMALL, 2 steps. Returns rank 0's
-    losses of each run, the grid's checkpoint directory, sharded weights
-    and timing, the hybrid run's sharded weights and audio tower calls."""
+    losses of each run, the grid's checkpoint directory, sharded weights,
+    timing and remat mode (its model's, its first record's), the hybrid
+    run's sharded weights and audio tower calls."""
     from lass_torch.train import loop
 
     config, root = inp["trainer_config"], inp["trainer_root"]
@@ -320,14 +320,28 @@ def _trainer_runs(rank, world, inp):
         hybrid.fit(max_steps=2)
     finally:
         loop.build_model, loop.shard_model = build_model, shard_model
-    grid = Trainer(inp["grid_config"], f"{root}/grid", device="cpu",
-                   log_every=1, query_encoder=small_encoder(),
-                   model_parallel=world)
+    # the full-width grid trains under remat 'all' (LASS_TPU_REMAT, read
+    # where the Trainer builds the model): its recompute repeats the
+    # column-parallel gathers in the backward pass
+    os.environ["LASS_TPU_REMAT"] = "all"
+    try:
+        grid = Trainer(inp["grid_config"], f"{root}/grid", device="cpu",
+                       log_every=1, query_encoder=small_encoder(),
+                       model_parallel=world)
+    finally:
+        del os.environ["LASS_TPU_REMAT"]
     grid.fit(max_steps=2)
+    logged_remat = None
+    path = os.path.join(grid.tf_logs_dir, "metrics.jsonl")
+    if os.path.exists(path):  # rank 0's
+        with open(path) as f:
+            logged_remat = json.loads(f.readline()).get("remat")
     return {"first": _losses(first), "resumed": _losses(resumed),
             "grid": _losses(grid), "grid_dir": grid.checkpoints_dir,
             "grid_sharded": tensor.sharded_dims(grid.task.model),
-            "grid_timing": grid.timing, "hybrid": _losses(hybrid),
+            "grid_timing": grid.timing,
+            "grid_remat": (grid.task.model.remat, logged_remat),
+            "hybrid": _losses(hybrid),
             "hybrid_sharded": tensor.sharded_dims(hybrid.task.model),
             "hybrid_audio_calls": len(encoder.calls)}
 
